@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels for Hopper (sources in ``../csrc``).
+
+Each kernel has a wrapper beside its plain PyTorch version:
+
+  * ``raster_fwd`` (``csrc/raster_fwd.cu``) behind
+    ``ops.rasterize.rasterize_fused``; it replaces the TPU kernel
+    ``magicmirror/ops/pallas/rasterize_v4.py::_fwd_stream_kernel``;
+  * ``texture_fwd`` (``csrc/texture_fwd.cu``) behind
+    ``ops.sampling.texture_render``; it replaces
+    ``magicmirror/ops/pallas/texture_cells.py::_tex_kernel``.
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, so a run
+can show that its main path went through the kernels.  Nothing here builds or
+loads at import; see ``build.py``.
+"""
+from __future__ import annotations
+
+LAUNCHES = {"raster_fwd": 0, "texture_fwd": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
