@@ -3,9 +3,9 @@
 // Replaces: magicmirror/ops/pallas/rasterize_v4.py::_fwd_stream_kernel (the
 // v5 stream forward, reached through rasterize_fused_v5).  The same function
 // is computed by rasterize_v6.py::_fwd6_kernel (dense templates),
-// rasterize_v4.py::_fwd_kernel (the static-capacity schedule) and the phase-1
-// half of rasterize_tpu.py::_image_kernel_fused; this kernel covers their
-// 'line' mode.
+// rasterize_v4.py::_fwd_kernel (the static-capacity schedule, whose plain
+// variant is this kernel's plain mode) and the phase-1 half of
+// rasterize_tpu.py::_image_kernel_fused; this kernel covers their 'line' mode.
 //
 // What it computes, per pixel of each image: among the faces in ascending id,
 //   d_i = affine edge-line distances (positive outside), dl = max(d0, d1, d2),
@@ -31,28 +31,23 @@
 // from every pixel centre, so its soft term is < 2e-4 at sigma = 7000 (and
 // < 3e-5 at 256^2), the TPU kernel's own culling rule.  The survivors are
 // compacted in id order (warp ballots), so ties resolve as in the reference.
+// The culling and the compaction live in raster_common.cuh, shared with the
+// backward kernel.
 // Per face, the exp/log1p pair is skipped where sigma*d^2 >= 88, where p is
 // below 1e-38 and the term does not change the float sum.
 
-#include <cuda_runtime.h>
+#include "raster_common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int THREADS = TILE * TILE;
-constexpr int R = 26;
-constexpr int CHUNK = 256;
-constexpr float SOFT_MARGIN = 0.035f;
+using namespace mm;
+
 constexpr float Z_INIT = -3.0e38f;
 constexpr float Z_FLOOR = -1.0e29f;
-constexpr float P_CLAMP = 1.0f - 1e-7f;
-constexpr float E_SKIP = 88.0f;
 
-enum Col {
-  A0X, A0Y, A0C, A1X, A1Y, A1C, A2X, A2Y, A2C, ZX, ZY, ZC,
-  BXMIN, BXMAX, BYMIN, BYMAX, FID, UX, UY, UC, VX, VY, VC, NXR, NYR, NZR
-};
-
+// FUSED: the winner's uv and normal, soft = 1 - exp(sumlog) and hard are
+// stored; else (the plain mode) only idx and, in `soft`, sumlog itself.
+template <bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 raster_fwd_kernel(const float* __restrict__ rows, int F, int H, int W,
                   float sigmainv, int* __restrict__ idx,
@@ -64,25 +59,11 @@ raster_fwd_kernel(const float* __restrict__ rows, int F, int H, int W,
 
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int col = blockIdx.x * TILE + tid % TILE;
   const int row = blockIdx.y * TILE + tid / TILE;
-
-  // pixel centres as rasterize_v4.py:1017-1018 computes them
-  const float sx = (float)(2.0 / W), ox = (float)(1.0 / W - 1.0);
-  const float sy = (float)(-2.0 / H), oy = (float)(1.0 - 1.0 / H);
-  const float px = col * sx + ox;
-  const float py = row * sy + oy;
-
-  // the tile's pixel-edge extent widened by the soft margin, as
-  // _overlap_cells bins faces into cells (rasterize_v4.py:195-217)
-  const int c0 = blockIdx.x * TILE, c1 = min(c0 + TILE, W);
-  const int r0 = blockIdx.y * TILE, r1 = min(r0 + TILE, H);
-  const float tx_lo = -1.f + 2.f * c0 / W - SOFT_MARGIN;
-  const float tx_hi = -1.f + 2.f * c1 / W + SOFT_MARGIN;
-  const float ty_hi = 1.f - 2.f * r0 / H + SOFT_MARGIN;
-  const float ty_lo = 1.f - 2.f * r1 / H - SOFT_MARGIN;
+  const float px = pixel_x(col, W);
+  const float py = pixel_y(row, H);
+  const TileBounds tile = tile_bounds(blockIdx.x, blockIdx.y, H, W);
 
   float best_z = Z_INIT, sumlog = 0.f;
   int best_f = -1;
@@ -95,24 +76,8 @@ raster_fwd_kernel(const float* __restrict__ rows, int F, int H, int W,
     for (int i = tid; i < n * R; i += THREADS) s_rows[i] = rb[(size_t)base * R + i];
     __syncthreads();
 
-    bool live = false;
-    if (tid < n) {
-      const float* r = s_rows + tid * R;
-      live = r[NZR] > 0.f && r[BXMAX] >= tx_lo && r[BXMIN] <= tx_hi &&
-             r[BYMAX] >= ty_lo && r[BYMIN] <= ty_hi;
-    }
-    const unsigned m = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) s_warp[warp] = __popc(m);
-    __syncthreads();
-    int off = 0, total = 0;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) {
-      const int c = s_warp[w];
-      off += (w < warp) ? c : 0;
-      total += c;
-    }
-    if (live) s_list[off + __popc(m & ((1u << lane) - 1u))] = tid;
-    __syncthreads();
+    const bool live = tid < n && face_live(s_rows + tid * R, tile);
+    const int total = compact_live(live, s_list, s_warp);
 
     for (int k = 0; k < total; ++k) {
       const int j = s_list[k];
@@ -125,11 +90,13 @@ raster_fwd_kernel(const float* __restrict__ rows, int F, int H, int W,
       if (dl <= 0.f && z > best_z) {
         best_z = z;
         best_f = base + j;
-        bu = r[UX] * px + r[UY] * py + r[UC];
-        bv = r[VX] * px + r[VY] * py + r[VC];
-        bnx = r[NXR];
-        bny = r[NYR];
-        bnz = r[NZR];
+        if (FUSED) {
+          bu = r[UX] * px + r[UY] * py + r[UC];
+          bv = r[VX] * px + r[VY] * py + r[VC];
+          bnx = r[NXR];
+          bny = r[NYR];
+          bnz = r[NZR];
+        }
       }
       const float dbx = fmaxf(r[BXMIN] - px, px - r[BXMAX]);
       const float dby = fmaxf(r[BYMIN] - py, py - r[BYMAX]);
@@ -143,6 +110,10 @@ raster_fwd_kernel(const float* __restrict__ rows, int F, int H, int W,
     const size_t p = ((size_t)b * H + row) * W + col;
     const bool covered = best_z > Z_FLOOR;
     idx[p] = covered ? best_f : -1;
+    if (!FUSED) {
+      soft[p] = sumlog;
+      return;
+    }
     soft[p] = 1.f - expf(sumlog);
     hard[p] = covered ? 1.f : 0.f;
     uv[2 * p + 0] = covered ? bu : 0.f;
@@ -159,7 +130,17 @@ extern "C" int raster_fwd(const float* rows, int B, int F, int H, int W,
                           float sigmainv, int* idx, float* soft, float* uv,
                           float* normal, float* hard, void* stream) {
   const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  raster_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  raster_fwd_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       rows, F, H, W, sigmainv, idx, soft, uv, normal, hard);
+  return (int)cudaGetLastError();
+}
+
+// The plain mode: idx and sumlog only (rasterize_v4.py::_fwd_kernel with
+// fused=False, reached through rasterize_plain_v4).
+extern "C" int raster_fwd_plain(const float* rows, int B, int F, int H, int W,
+                                float sigmainv, int* idx, float* sumlog, void* stream) {
+  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
+  raster_fwd_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      rows, F, H, W, sigmainv, idx, sumlog, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }

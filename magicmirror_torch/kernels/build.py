@@ -1,5 +1,6 @@
 """Build ``csrc/*.cu`` with nvcc into one shared library with a plain C
-interface, and bind it with ctypes.
+interface, and bind it with ctypes.  Each source is compiled by its own nvcc
+process, all started together, and the objects are linked into the library.
 
 The build runs at first use, never at import.  Its output goes to
 ``build/magicmirror_torch/<hash>/`` at the root of the checkout, keyed by a
@@ -22,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "magicmirror_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # filled by build(): seconds, path and the compiler's output (ptxas -v)
 BUILD_INFO: dict = {}
@@ -33,8 +34,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # rows, B, F, H, W, sigmainv, idx, soft, uv, normal, hard, stream
     "raster_fwd": (_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    # rows, B, F, H, W, sigmainv, idx, sumlog, stream
+    "raster_fwd_plain": (_P, _I, _I, _I, _I, _F, _P, _P, _P),
     # uv, mask, tex, B, H, W, Ht, Wt, out, stream
     "texture_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # rows, g_sumlog, B, F + 1, H, W, sigmainv, G, stream
+    "raster_bwd": (_P, _P, _I, _I, _I, _I, _F, _P, _P),
+    # g, uv, mask, tex, B, H, W, Ht, Wt, d_tex, d_uv, stream
+    "texture_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 _LIB = None
 
@@ -46,11 +53,24 @@ def _nvcc() -> str:
     return path
 
 
+def _run(cmds):
+    """Start every command at once, wait for all, raise on the first failure;
+    returns their combined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, output in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{output}")
+    return "".join(outputs)
+
+
 def build() -> Path:
     """Compile every ``csrc/*.cu`` into one library; returns its path."""
     srcs = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in sorted(CSRC.glob("*.cu*")):  # the headers too
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
@@ -61,16 +81,18 @@ def build() -> Path:
         BUILD_INFO["path"] = str(lib)
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libmmkernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc, pid = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{pid}.o" for src in srcs]
+    tmp = out_dir / f"libmmkernels.{pid}.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(srcs, objs)])
+    log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)
-    BUILD_INFO.update(seconds=seconds, log=proc.stdout + proc.stderr, path=str(lib))
+    BUILD_INFO.update(seconds=seconds, log=log, path=str(lib))
     return lib
 
 

@@ -32,12 +32,15 @@ class FlaxNamed(nn.Module):
 
 
 class Conv(nn.Conv2d):
-    """Flax ``nn.Conv`` (zero padding, bias by default)."""
+    """Flax ``nn.Conv`` (zero padding, bias by default); ``classifier``
+    heads take the N(0, 1e-5) init."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, dilation: int = 1, bias: bool = True):
+                 padding: int = 0, dilation: int = 1, bias: bool = True,
+                 classifier: bool = False):
         super().__init__(cin, cout, kernel_size, stride=stride, padding=padding,
                          dilation=dilation, bias=bias)
+        self.classifier = classifier
 
 
 class Dense(nn.Linear):
@@ -49,15 +52,64 @@ class Dense(nn.Linear):
 
 
 class BatchNorm(_BatchNorm):
-    """BatchNorm over dim 1 of (N, C) or (N, C, H, W) input with torch
-    defaults (eps 1e-5, momentum 0.1), as the JAX ``BatchNorm``."""
+    """BatchNorm over dim 1 of (N, C) or (N, C, H, W) input with eps 1e-5
+    and momentum 0.1, as the JAX ``BatchNorm``.
+
+    In train mode the running variance follows the BIASED batch variance, as
+    Flax's ``nn.BatchNorm`` keeps it (torch's own modules store the unbiased
+    one).  With ``update_stats`` False a train-mode call normalises with the
+    batch statistics and leaves the running ones alone: a frozen branch of
+    the encoder must not advance them."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.update_stats = True
 
     def _check_input_dim(self, input):
         if input.dim() not in (2, 4):
             raise ValueError(f"expected 2D or 4D input (got {input.dim()}D input)")
+
+    def forward(self, x):
+        self._check_input_dim(x)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        if not self.update_stats:
+            return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        self.num_batches_tracked += 1
+        factor = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                  else self.momentum)
+        n = x.numel() // x.shape[1]
+        var_before = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                           True, factor, self.eps)
+        # F.batch_norm stored (1 - f) * old + f * unbiased; biased = unbiased * (n - 1) / n.
+        # Through .data, as F.batch_norm itself writes the statistics: autograd
+        # saved the buffer for the backward and must not see a new version.
+        self.running_var.data.mul_((n - 1) / n).add_(var_before, alpha=(1.0 - factor) / n)
+        return out
+
+
+class Dropout(nn.Module):
+    """Flax ``nn.Dropout``: in train mode an element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate).  The keep mask is drawn
+    from ``generator`` (None: torch's default generator of the input's
+    device), or is ``mask`` when a caller has set one (a test injecting its
+    own draw); rate 0 and eval mode are the identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator = None
+        self.mask = None
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = self.mask
+        if keep is None:
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.rate
+        return x * keep / (1.0 - self.rate)
 
 
 def leaky_relu(x):

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .blocks import BatchNorm, Dense, MMPool
+from .blocks import BatchNorm, MMPool
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "p": "p"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -82,7 +82,7 @@ def init_from_seed(model: nn.Module, seed: int) -> nn.Module:
         for module in model.modules():
             if isinstance(module, (nn.Conv2d, nn.Linear)):
                 fan_in = module.weight[0].numel()
-                if isinstance(module, Dense) and module.classifier:
+                if getattr(module, "classifier", False):
                     normal(module.weight, 1e-5)
                 else:
                     normal(module.weight, math.sqrt(2.0 / fan_in))

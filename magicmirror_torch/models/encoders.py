@@ -1,8 +1,8 @@
-"""The serving-path encoders, the port of ``magicmirror/models/encoders.py``.
+"""The encoders, the port of ``magicmirror/models/encoders.py``.
 
 Each encoder takes NHWC RGBA images in [0, 1] (the JAX layout) and runs its
-convolutions NCHW.  Dropout is the identity at eval and is left out: the
-port serves, it does not train yet.
+convolutions NCHW.  The dropout layers (``blocks.Dropout``) sit where the
+JAX modules have theirs and are the identity in eval mode.
 """
 from __future__ import annotations
 
@@ -13,8 +13,8 @@ import torch.nn.functional as F
 
 from ..ops.sampling import grid_sample
 from .backbones import Resnet4C, make_backbone, normalize_batch_4c
-from .blocks import (ASPP, BatchNorm, Conv2dBlock, Dense, FlaxNamed, LinearBlock,
-                     MMPool, leaky_relu, upsample2x)
+from .blocks import (ASPP, BatchNorm, Conv2dBlock, Dense, Dropout, FlaxNamed, LinearBlock,
+                     MMPool, ResBlockHalf, ResBlocks, leaky_relu, upsample2x)
 
 
 def _sample_at_template(feat, template_xy, align_corners: bool):
@@ -23,6 +23,12 @@ def _sample_at_template(feat, template_xy, align_corners: bool):
     grid = template_xy[None, :, None, :].expand(B, V, 1, 2)
     return F.grid_sample(feat, grid, mode="bilinear", padding_mode="zeros",
                          align_corners=align_corners)
+
+
+def clip01_signed(x):
+    """Hardtanh: clip to [-1, 1] with the gradient of ``jnp.clip`` (1/2 at
+    exactly +-1, where ``torch.clamp`` passes 1)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(-1.0)), x.new_ones(()))
 
 
 def _nchw(x):
@@ -35,7 +41,8 @@ class CameraEncoder(FlaxNamed):
 
     def __init__(self, nc: int = 4, nk: int = 5, azi_scope: float = 360.0,
                  elev_range: str = "0~30", dist_range: str = "2~7",
-                 coordconv: bool = False, norm: str = "bn", pretrain: str = "none"):
+                 coordconv: bool = False, norm: str = "bn", pretrain: str = "none",
+                 droprate: float = 0.0):
         super().__init__()
         backbone, dim = make_backbone(pretrain, nc, nk, norm, coordconv)
         self.child(backbone, "backbone")
@@ -46,6 +53,7 @@ class CameraEncoder(FlaxNamed):
         self.dist_min, self.dist_max = (float(v) for v in dist_range.split("~"))
         for head in ("dist", "azim", "bias"):
             self.child(LinearBlock(dim * 2 * 4, 128, relu=False), f"{head}_lb")
+            self.child(Dropout(droprate), f"{head}_drop")
             self.child(Dense(128, 2, classifier=True), f"{head}_out")
 
     @staticmethod
@@ -62,7 +70,8 @@ class CameraEncoder(FlaxNamed):
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten H, W, C
 
         def head(name):
-            return getattr(self, f"{name}_out")(getattr(self, f"{name}_lb")(x))
+            h = getattr(self, f"{name}_drop")(getattr(self, f"{name}_lb")(x))
+            return getattr(self, f"{name}_out")(h)
 
         dist_out, azim_out, bias_out = head("dist"), head("azim"), head("bias")
         distances = self.dist_min + torch.sigmoid(dist_out[:, 0]) * (
@@ -80,7 +89,8 @@ class ShapeEncoder(FlaxNamed):
     offsets bounded by 0.5 * tanh and zero-meaned."""
 
     def __init__(self, nc: int = 4, nk: int = 5, num_vertices: int = 642,
-                 pretrain: str = "hr18sv2", coordconv: bool = False, norm: str = "bn"):
+                 pretrain: str = "hr18sv2", coordconv: bool = False, norm: str = "bn",
+                 droprate: float = 0.0):
         super().__init__()
         self.num_vertices = num_vertices
         backbone, dim = make_backbone(pretrain, nc, nk, norm, coordconv)
@@ -88,6 +98,7 @@ class ShapeEncoder(FlaxNamed):
         self.child(MMPool((1, 1)), "mmpool")
         self.child(Dense(3 * dim + 3, 256), "conv1")
         self.child(BatchNorm(256), "bn1")
+        self.child(Dropout(droprate), "drop1")
         self.child(Dense(256, 3), "conv2")
         self.child(BatchNorm(3), "bn2")
         self.child(Dense(num_vertices * 3, num_vertices * 3, classifier=True), "linear3")
@@ -104,6 +115,7 @@ class ShapeEncoder(FlaxNamed):
         # a 1x1 Conv1d over vertices is a Dense on channels; BN1d normalises
         # each channel over (batch, vertices)
         h = leaky_relu(self.bn1(self.conv1(h).reshape(B * V, -1)).reshape(B, V, -1))
+        h = self.drop1(h)
         h = self.bn2(self.conv2(h).reshape(B * V, 3))
         delta = 0.5 * torch.tanh(self.linear3(h.reshape(B, V * 3)))
         delta = delta.reshape(B, V, 3)
@@ -115,7 +127,8 @@ class LightEncoder(FlaxNamed):
 
     WIDTHS = (32, 64, 96, 192, 96)
 
-    def __init__(self, nc: int = 4, nk: int = 5, coordconv: bool = False, norm: str = "bn"):
+    def __init__(self, nc: int = 4, nk: int = 5, coordconv: bool = False, norm: str = "bn",
+                 droprate: float = 0.0):
         super().__init__()
         cin = nc
         for i, w in enumerate(self.WIDTHS):
@@ -124,6 +137,7 @@ class LightEncoder(FlaxNamed):
             cin = w
         self.child(MMPool((1, 1)))
         self.child(LinearBlock(cin, 48, relu=False))
+        self.child(Dropout(droprate), "drop")
         self.child(Dense(48, 9, classifier=True))
 
     def forward(self, x):
@@ -131,7 +145,7 @@ class LightEncoder(FlaxNamed):
         x = _nchw(normalize_batch_4c(x))
         for i in range(len(self.WIDTHS)):
             x = getattr(self, f"Conv2dBlock_{i}")(x)
-        x = self.LinearBlock_0(self.MMPool_0(x).reshape(B, -1))
+        x = self.drop(self.LinearBlock_0(self.MMPool_0(x).reshape(B, -1)))
         lightparam = torch.tanh(self.Dense_0(x))
         scale = torch.tensor([[0.5] + [0.1] * 8], dtype=x.dtype, device=x.device)
         bias = torch.tensor([[3.0] + [0.0] * 8], dtype=x.dtype, device=x.device)
@@ -172,9 +186,10 @@ class TextureBiFPN(FlaxNamed):
     """3x BiFPN decoder -> 2-channel texture flow in [-1, 1] at 4x the x2
     resolution."""
 
-    def __init__(self, outdim: int, norm: str = "bn"):
+    def __init__(self, outdim: int, norm: str = "bn", droprate: float = 0.0):
         super().__init__()
         d = outdim
+        self.child(Dropout(droprate / 2), "drop")
         self.child(BiFPN(d, norm=norm, down=True))
         self.child(BiFPN(d, norm=norm, down=True))
         self.child(BiFPN(d, norm=norm, down=False))
@@ -189,26 +204,44 @@ class TextureBiFPN(FlaxNamed):
         p = self.BiFPN_1(self.BiFPN_0([x5, x4, x3, x2]))
         h = self.Conv2dBlock_0(self.BiFPN_2(p))
         h = upsample2x(self.ASPP_0(h))
-        h = upsample2x(self.ASPP_1(self.Conv2dBlock_1(h)))
-        return self.Conv2dBlock_2(h).clamp(-1.0, 1.0)  # Hardtanh
+        h = self.drop(upsample2x(self.ASPP_1(self.Conv2dBlock_1(h))))
+        return clip01_signed(self.Conv2dBlock_2(h))  # Hardtanh
 
 
 class TextureEncoder(FlaxNamed):
-    """Texture flow: ResNet-34 pyramid -> TextureBiFPN -> 2-channel flow ->
-    bicubic sample of the input image -> vertical concat with the flipped
-    map -> (B, 2H, W, 3)."""
+    """Texture flow: a pyramid (ResNet-34, or the 'none' residual pyramid) ->
+    TextureBiFPN -> 2-channel flow -> bicubic sample of the input image ->
+    vertical concat with the flipped map -> (B, 2H, W, 3)."""
 
-    def __init__(self, pretrain: str = "res34", norm: str = "bn"):
+    def __init__(self, pretrain: str = "res34", norm: str = "bn", nk: int = 5,
+                 coordconv: bool = False, droprate: float = 0.0):
         super().__init__()
-        if pretrain != "res34":
+        self.pretrain = pretrain
+        if pretrain == "res34":
+            self.child(Resnet4C(arch="res34", stride=2, return_pyramid=True))
+        elif pretrain == "none":
+            self.child(Conv2dBlock(4, 32, nk, 2, 2, norm="bn", coordconv=coordconv))
+            for width, blocks in ((32, 1), (64, 3), (128, 3), (256, 2)):
+                self.child(ResBlockHalf(width, norm=norm))
+                self.child(ResBlocks(blocks, 2 * width, norm=norm))
+        else:
             raise NotImplementedError(
-                f"texture backbone {pretrain!r}: only 'res34' is ported")
-        self.child(Resnet4C(arch="res34", stride=2, return_pyramid=True))
-        self.child(TextureBiFPN(512, norm=norm))
+                f"texture backbone {pretrain!r}: only 'res34' and 'none' are ported")
+        self.child(TextureBiFPN(512, norm=norm, droprate=droprate))
+
+    def pyramid(self, x):
+        if self.pretrain == "res34":
+            return self.Resnet4C_0(x)[1:]
+        h = self.Conv2dBlock_0(x)
+        feats = []
+        for i in range(4):
+            h = getattr(self, f"ResBlocks_{i}")(getattr(self, f"ResBlockHalf_{i}")(h))
+            feats.append(h)
+        return feats
 
     def forward(self, x):
         img = x[..., :3]
-        _, x2, x3, x4, x5 = self.Resnet4C_0(_nchw(normalize_batch_4c(x)))
+        x2, x3, x4, x5 = self.pyramid(_nchw(normalize_batch_4c(x)))
         flow = self.TextureBiFPN_0(x5, x4, x3, x2).permute(0, 2, 3, 1)
         textures = grid_sample(img, flow, mode="bicubic", align_corners=True)
         return torch.cat([textures, textures.flip(1)], dim=1)

@@ -5,6 +5,7 @@ The port of ``_raw_line_coeffs``, ``_affine_interp`` and ``_face_rows`` of
 quantity the forward needs is an affine function of the pixel centre, so a
 face is 26 f32: three signed edge-line distances, the z plane, the bbox, the
 face id, the u and v planes and the face normal.  Plain torch, as XLA did it.
+``coeffs13`` is the differentiable half that the backward pass chains through.
 """
 from __future__ import annotations
 
@@ -54,6 +55,19 @@ def _raw_line_coeffs(fvi):
     )
     aux = dict(den=den, c0x=c0x, c0y=c0y, c0c=c0c, c1x=c1x, c1y=c1y, c1c=c1c)
     return coeffs, aux
+
+
+COEFF13_KEYS = ("a0x", "a0y", "a0c", "a1x", "a1y", "a1c",
+                "a2x", "a2y", "a2c", "xmin", "xmax", "ymin", "ymax")
+
+
+def coeffs13(fvi):
+    """(..., F, 3, 2) -> (..., F, 13): the nine edge-line and four bbox
+    coefficients, unmasked and differentiable.  The soft-silhouette backward
+    produces one moment per coefficient and chains to the vertices through
+    this function's autograd (``_coeffs13``, rasterize_v4.py:109)."""
+    c, _ = _raw_line_coeffs(fvi)
+    return torch.stack([c[k] for k in COEFF13_KEYS], dim=-1)
 
 
 def _affine_interp(aux, v0, v1, v2):

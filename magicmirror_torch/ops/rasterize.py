@@ -6,9 +6,13 @@ the wrapper of the CUDA forward kernel.
 face-chunked phase 1 and ``_interpolate_selected``) over ALL faces, with no
 culling.  It is the CPU path and the kernel's oracle.
 
-``rasterize_fused`` is the wrapper: CPU tensors take the plain path; CUDA
-tensors pack the per-face rows (``face_rows.py``) and launch
-``csrc/raster_fwd.cu``, or raise.
+``rasterize_fused`` (``RasterizeFused``) is the differentiable wrapper: CPU
+tensors take the plain paths; CUDA tensors pack the per-face rows
+(``face_rows.py``) and launch ``csrc/raster_fwd.cu`` in the forward and
+``csrc/raster_bwd.cu`` in the backward, or raise.  ``soft_backward_plain`` is
+the backward kernel's plain version.  ``rasterize_plain`` (``RasterizePlain``)
+is phase 1 alone (idx and sumlog), through the forward kernel's plain mode
+and the same backward kernel.
 
 Per pixel: the winner is the front-facing, non-degenerate covering face with
 the largest camera z (lowest id on ties); soft = 1 - prod(1 - p) with
@@ -20,8 +24,9 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from . import clip01
 from ..kernels import build
-from .face_rows import R_FUSED, face_rows
+from .face_rows import R_FUSED, coeffs13, face_rows
 
 _DEN_EPS = 1e-10
 _P_CLAMP = 1.0 - 1e-7
@@ -139,7 +144,7 @@ def interpolate_selected(px, py, best_idx, fvi, face_features):
     w0 = _cross2(cx - bx, cy - by, px - bx, py - by) / den
     w1 = _cross2(ax - cx, ay - cy, px - cx, py - cy) / den
     w2 = 1.0 - w0 - w1
-    w = torch.stack([w0, w1, w2], dim=-1).clamp(0.0, 1.0)
+    w = clip01(torch.stack([w0, w1, w2], dim=-1))
     w = w / (w.sum(dim=-1, keepdim=True) + 1e-12)
 
     hard = (best_idx >= 0).to(torch.float32)
@@ -187,12 +192,193 @@ def raster_fwd(rows, sigmainv: float, height: int, width: int):
     return idx, soft, uv, normal, hard
 
 
+def raster_fwd_plain(rows, sigmainv: float, height: int, width: int):
+    """Launch the plain mode of ``csrc/raster_fwd.cu`` on face rows
+    (B, F + 1, 26): idx (B, P) int32 and sumlog (B, P) only, the outputs of
+    :func:`rasterize_phase1`.  Counted as a launch of ``raster_fwd``: one
+    kernel source, two instantiations."""
+    B, F1 = rows.shape[0], rows.shape[1]
+    build.check(rows, "rows", torch.float32, (B, F1, R_FUSED))
+    idx = torch.empty((B, height * width), dtype=torch.int32, device=rows.device)
+    sumlog = torch.empty((B, height * width), dtype=torch.float32, device=rows.device)
+    build.launch("raster_fwd_plain", rows.data_ptr(), B, F1, height, width, float(sigmainv),
+                 idx.data_ptr(), sumlog.data_ptr())
+    kernels.LAUNCHES["raster_fwd"] += 1
+    return idx, sumlog
+
+
+def soft_backward_plain(fvi, fnz, g_sumlog, sigmainv: float, height: int, width: int):
+    """Plain version of the backward kernel (any device): the 13 per-face
+    moments of the soft-silhouette gradient, over ALL faces with no culling.
+
+    fvi (B, F, 3, 2); fnz (B, F); g_sumlog (B, P) the cotangent of sumlog.
+    Returns G (B, F, 13), the cotangent of ``face_rows.coeffs13(fvi)``: per
+    (pixel, face) pair the weight gl = g * 2 sigma d p / (1 - p) goes to the
+    one term that is active in d = max(d0, d1, d2, dbx, dby, 0), ties as
+    ``_bwd_stream_kernel`` resolves them (rasterize_v4.py:653-666)."""
+    B, F = fvi.shape[0], fvi.shape[1]
+    px, py = pixel_grid(height, width, fvi.device)
+    P = px.shape[0]
+    coef = coeffs13(fvi.detach())
+    front = fnz > 0.0
+    g = g_sumlog.reshape(B, P, 1)
+    p_x, p_y = px[None, :, None], py[None, :, None]
+    chunk = max(1, min(256, _CHUNK_ELEMS // (B * P)))
+    out = []
+    for base in range(0, F, chunk):
+        c = coef[:, None, base:base + chunk]  # (B, 1, C, 13)
+        d0 = c[..., 0] * p_x + c[..., 1] * p_y + c[..., 2]
+        d1 = c[..., 3] * p_x + c[..., 4] * p_y + c[..., 5]
+        d2 = c[..., 6] * p_x + c[..., 7] * p_y + c[..., 8]
+        xmin, xmax, ymin, ymax = c[..., 9], c[..., 10], c[..., 11], c[..., 12]
+        dl = torch.maximum(torch.maximum(d0, d1), d2)
+        dbx = torch.maximum(xmin - p_x, p_x - xmax)
+        dby = torch.maximum(ymin - p_y, p_y - ymax)
+        dpos = torch.maximum(dl, torch.maximum(dbx, dby)).clamp(min=0.0)
+        p_soft = _P_CLAMP * torch.exp(dpos * dpos * (-sigmainv))
+        gl = g * (2.0 * sigmainv) * dpos * (p_soft / (1.0 - p_soft))
+        gl = torch.where(front[:, None, base:base + chunk], gl, 0.0)
+
+        mline = (dl >= dbx) & (dl >= dby)
+        m0 = (d0 >= d1) & (d0 >= d2)
+        m1 = ~m0 & (d1 >= d2)
+        m2 = ~m0 & ~m1
+        mbx = ~mline & (dbx >= dby)
+        mby = ~mline & ~mbx
+        x_lo = (xmin - p_x) >= (p_x - xmax)
+        y_lo = (ymin - p_y) >= (p_y - ymax)
+        cols = []
+        for m in (m0, m1, m2):
+            w = torch.where(mline & m, gl, 0.0)
+            cols += [(w * p_x).sum(1), (w * p_y).sum(1), w.sum(1)]
+        cols += [torch.where(mbx & x_lo, gl, 0.0).sum(1),
+                 torch.where(mbx & ~x_lo, -gl, 0.0).sum(1),
+                 torch.where(mby & y_lo, gl, 0.0).sum(1),
+                 torch.where(mby & ~y_lo, -gl, 0.0).sum(1)]
+        out.append(torch.stack(cols, dim=-1))  # (B, C, 13)
+    return torch.cat(out, dim=1)
+
+
+def raster_bwd(rows, g_sumlog, sigmainv: float, height: int, width: int):
+    """Launch ``csrc/raster_bwd.cu`` on the forward's face rows (B, F + 1, 26)
+    and g_sumlog (B, H * W); same output as :func:`soft_backward_plain`."""
+    B, F1 = rows.shape[0], rows.shape[1]
+    build.check(rows, "rows", torch.float32, (B, F1, R_FUSED))
+    build.check(g_sumlog, "g_sumlog", torch.float32, (B, height * width))
+    G = torch.zeros((B, F1 - 1, 13), dtype=torch.float32, device=rows.device)
+    build.launch("raster_bwd", rows.data_ptr(), g_sumlog.data_ptr(), B, F1, height, width,
+                 float(sigmainv), G.data_ptr())
+    kernels.LAUNCHES["raster_bwd"] += 1
+    return G
+
+
+class RasterizeFused(torch.autograd.Function):
+    """Differentiable rasterization: the plain path for CPU tensors, the CUDA
+    kernels for CUDA tensors (or an error; there is no fallback).
+
+    forward(fvi, fz, fnz, face_uvs, face_normals, sigmainv, height, width)
+    has the contract of :func:`rasterize_fused_plain`.  backward, as
+    ``_fused_bwd`` (rasterize_v4.py:885-918): the uv and normal cotangents go
+    through autograd of :func:`interpolate_selected` at the saved winner; the
+    soft cotangent becomes g_sumlog = g_soft * (soft - 1), whose 13 per-face
+    moments (the backward kernel, or :func:`soft_backward_plain` on the CPU)
+    chain to fvi through ``coeffs13``.  fz and fnz get no gradient, and the
+    cotangents of idx and hard are dropped."""
+
+    @staticmethod
+    def forward(ctx, fvi, fz, fnz, face_uvs, face_normals, sigmainv, height, width):
+        if fvi.is_cuda:
+            rows = face_rows(fvi, fz, fnz, face_uvs, face_normals).contiguous()
+            out = raster_fwd(rows, sigmainv, height, width)
+        else:
+            rows = None
+            out = rasterize_fused_plain(fvi, fz, fnz, face_uvs, face_normals,
+                                        sigmainv, height, width)
+        idx, soft = out[0], out[1]
+        ctx.save_for_backward(fvi, fnz, face_uvs, face_normals, idx, soft)
+        ctx.rows = rows
+        ctx.geometry = (float(sigmainv), int(height), int(width))
+        ctx.mark_non_differentiable(idx, out[4])
+        return out
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_soft, g_uv, g_normal, _g_hard):
+        fvi, fnz, face_uvs, face_normals, idx, soft = ctx.saved_tensors
+        sigmainv, height, width = ctx.geometry
+        B, F = fvi.shape[0], fvi.shape[1]
+        P = height * width
+
+        g_sumlog = (g_soft * (soft - 1.0)).reshape(B, P).contiguous()
+        G = _soft_moments(fvi, fnz, ctx.rows, g_sumlog, sigmainv, height, width)
+
+        px, py = pixel_grid(height, width, fvi.device)
+        g_feats = torch.cat([g_uv.reshape(B, P, 2), g_normal.reshape(B, P, 3)], dim=-1)
+        with torch.enable_grad():
+            fvi_, uvs_, normals_ = (x.detach().to(fvi.dtype).requires_grad_(True)
+                                    for x in (fvi, face_uvs, face_normals))
+            feats = torch.cat([uvs_[None].expand(B, F, 3, 2),
+                               normals_[:, :, None, :].expand(B, F, 3, 3)], dim=-1)
+            out, _ = interpolate_selected(px, py, idx.reshape(B, P).long(), fvi_, feats)
+            total = (out * g_feats).sum() + (coeffs13(fvi_) * G).sum()
+            g_fvi, g_uvs, g_normals = torch.autograd.grad(total, (fvi_, uvs_, normals_))
+        return g_fvi, None, None, g_uvs, g_normals, None, None, None
+
+
+def _soft_moments(fvi, fnz, rows, g_sumlog, sigmainv, height, width):
+    """The backward kernel on the card, its plain version on the CPU."""
+    if fvi.is_cuda:
+        return raster_bwd(rows, g_sumlog, sigmainv, height, width)
+    return soft_backward_plain(fvi, fnz, g_sumlog, sigmainv, height, width)
+
+
+class RasterizePlain(torch.autograd.Function):
+    """Phase 1 alone, differentiable: (idx (B, P) int32, sumlog (B, P)), the
+    function of ``rasterize_plain_v4``.  forward(fvi, fz, fnz, sigmainv,
+    height, width): :func:`rasterize_phase1` for CPU tensors, the forward
+    kernel's plain mode for CUDA tensors.  backward: the cotangent of sumlog
+    through the backward kernel (or :func:`soft_backward_plain`) and
+    ``coeffs13``, to fvi alone."""
+
+    @staticmethod
+    def forward(ctx, fvi, fz, fnz, sigmainv, height, width):
+        if fvi.is_cuda:
+            zeros = fvi.new_zeros(())
+            normals = torch.stack([zeros.expand_as(fnz), zeros.expand_as(fnz), fnz], dim=-1)
+            rows = face_rows(fvi, fz, fnz, fvi.new_zeros((fvi.shape[1], 3, 2)),
+                             normals).contiguous()
+            idx, sumlog = raster_fwd_plain(rows, sigmainv, height, width)
+        else:
+            rows = None
+            px, py = pixel_grid(height, width, fvi.device)
+            idx, sumlog = rasterize_phase1(px, py, fvi, fz, fnz, sigmainv)
+            idx = idx.to(torch.int32)
+        ctx.save_for_backward(fvi, fnz)
+        ctx.rows = rows
+        ctx.geometry = (float(sigmainv), int(height), int(width))
+        ctx.mark_non_differentiable(idx)
+        return idx, sumlog
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_sumlog):
+        fvi, fnz = ctx.saved_tensors
+        G = _soft_moments(fvi, fnz, ctx.rows, g_sumlog.contiguous(), *ctx.geometry)
+        with torch.enable_grad():
+            fvi_ = fvi.detach().requires_grad_(True)
+            (g_fvi,) = torch.autograd.grad((coeffs13(fvi_) * G).sum(), fvi_)
+        return g_fvi, None, None, None, None, None
+
+
+def rasterize_plain(fvi, fz, fnz, sigmainv=7000.0, height=256, width=256):
+    """Phase-1 rasterization with a gradient to fvi: see
+    :class:`RasterizePlain`.  Returns (idx (B, P) int32 with -1 = background,
+    sumlog (B, P), dropped (B,) int32, always 0: nothing has a capacity)."""
+    idx, sumlog = RasterizePlain.apply(fvi, fz, fnz, sigmainv, height, width)
+    return idx, sumlog, torch.zeros(fvi.shape[0], dtype=torch.int32, device=fvi.device)
+
+
 def rasterize_fused(fvi, fz, fnz, face_uvs, face_normals, sigmainv=7000.0,
                     height=256, width=256):
-    """Forward rasterization: the plain path for CPU tensors, the CUDA
-    kernel for CUDA tensors.  Same contract as :func:`rasterize_fused_plain`."""
-    if not fvi.is_cuda:
-        return rasterize_fused_plain(fvi, fz, fnz, face_uvs, face_normals,
-                                     sigmainv, height, width)
-    rows = face_rows(fvi, fz, fnz, face_uvs, face_normals).contiguous()
-    return raster_fwd(rows, sigmainv, height, width)
+    """Rasterization with gradients to fvi, face_uvs and face_normals: see
+    :class:`RasterizeFused`.  Same contract as :func:`rasterize_fused_plain`."""
+    return RasterizeFused.apply(fvi, fz, fnz, face_uvs, face_normals, sigmainv,
+                                height, width)

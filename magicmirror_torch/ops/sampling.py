@@ -1,9 +1,11 @@
 """Grid sampling and UV texture mapping, NHWC at the public interface.
 
 The port of ``magicmirror/ops/sampling.py`` (``grid_sample`` and the eager
-``texture_mapping``).  ``texture_render`` is the wrapper of the CUDA masked
-texture kernel (``csrc/texture_fwd.cu``); its plain version is
-``texture_render_plain`` = ``texture_mapping(uv) * mask``.
+``texture_mapping``).  ``texture_render`` (``TextureRender``) is the
+differentiable wrapper of the CUDA masked texture kernels
+(``csrc/texture_fwd.cu``, ``csrc/texture_bwd.cu``); their plain versions are
+``texture_render_plain`` = ``texture_mapping(uv) * mask`` and
+``texture_backward_plain``, its autograd.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from . import clip01
 from ..kernels import build
 
 
@@ -32,7 +35,7 @@ def texture_mapping(texture_coordinates, texture_maps):
 
     texture_coordinates (B, H, W, 2); texture_maps (B, Ht, Wt, C) -> (B, H, W, C).
     """
-    uv = texture_coordinates.clamp(0.0, 1.0)
+    uv = clip01(texture_coordinates)
     grid_x = uv[..., 0] * 2.0 - 1.0
     grid_y = -(uv[..., 1] * 2.0 - 1.0)  # reversed v-coordinate
     N, Ht, Wt, C = texture_maps.shape
@@ -85,10 +88,62 @@ def texture_fwd(texcoord, textures, texmask):
     return out
 
 
-def texture_render(texcoord, textures, texmask):
-    """Masked texture sampling: the plain path for CPU tensors, the CUDA
-    kernel for CUDA tensors.  Same contract as :func:`texture_render_plain`."""
-    if not texcoord.is_cuda:
+def texture_backward_plain(g, texcoord, textures, texmask):
+    """Plain version of the backward kernel: autograd of
+    :func:`texture_render_plain`.  g (B, H, W, 3) -> (d_texcoord (B, H, W, 2),
+    d_textures (B, Ht, Wt, 3)); the mask gets no gradient."""
+    with torch.enable_grad():
+        uv = texcoord.detach().requires_grad_(True)
+        tex = textures.detach().requires_grad_(True)
+        out = texture_render_plain(uv, tex, texmask.detach())
+        d_uv, d_tex = torch.autograd.grad(out, (uv, tex), g)
+    return d_uv, d_tex
+
+
+def texture_bwd(g, texcoord, textures, texmask):
+    """Launch ``csrc/texture_bwd.cu``; same outputs as
+    :func:`texture_backward_plain`.  fp32, contiguous NHWC inputs."""
+    B, H, W = texmask.shape
+    Ht, Wt = textures.shape[1], textures.shape[2]
+    build.check(g, "g", torch.float32, (B, H, W, 3))
+    build.check(texcoord, "texcoord", torch.float32, (B, H, W, 2))
+    build.check(texmask, "texmask", torch.float32, (B, H, W))
+    build.check(textures, "textures", torch.float32, (B, Ht, Wt, 3))
+    d_tex = torch.zeros_like(textures)
+    d_uv = torch.empty_like(texcoord)
+    build.launch("texture_bwd", g.data_ptr(), texcoord.data_ptr(), texmask.data_ptr(),
+                 textures.data_ptr(), B, H, W, Ht, Wt, d_tex.data_ptr(), d_uv.data_ptr())
+    kernels.LAUNCHES["texture_bwd"] += 1
+    return d_uv, d_tex
+
+
+class TextureRender(torch.autograd.Function):
+    """Differentiable masked texture sampling: the plain paths for CPU
+    tensors, the CUDA kernels for CUDA tensors (or an error; there is no
+    fallback).  Gradients go to texcoord and textures; the mask gets none
+    (every caller's mask is the rasterizer's hard coverage, whose cotangent
+    the rasterizer drops)."""
+
+    @staticmethod
+    def forward(ctx, texcoord, textures, texmask):
+        texcoord, textures, texmask = (texcoord.contiguous(), textures.contiguous(),
+                                       texmask.contiguous())
+        ctx.save_for_backward(texcoord, textures, texmask)
+        if texcoord.is_cuda:
+            return texture_fwd(texcoord, textures, texmask)
         return texture_render_plain(texcoord, textures, texmask)
-    return texture_fwd(texcoord.contiguous(), textures.contiguous(),
-                       texmask.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        texcoord, textures, texmask = ctx.saved_tensors
+        if texcoord.is_cuda:
+            d_uv, d_tex = texture_bwd(g.contiguous(), texcoord, textures, texmask)
+        else:
+            d_uv, d_tex = texture_backward_plain(g, texcoord, textures, texmask)
+        return d_uv, d_tex, None
+
+
+def texture_render(texcoord, textures, texmask):
+    """Masked texture sampling with gradients to texcoord and textures: see
+    :class:`TextureRender`.  Same contract as :func:`texture_render_plain`."""
+    return TextureRender.apply(texcoord, textures, texmask)

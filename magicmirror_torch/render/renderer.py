@@ -1,7 +1,9 @@
-"""DiffRender forward, the port of ``magicmirror/render/renderer.py``.
+"""DiffRender, the port of ``magicmirror/render/renderer.py``: the
+differentiable render and the loss suite (delegated to ``..losses``).
 
-camera -> rasterize (the ``raster_fwd`` kernel on CUDA) -> masked texture
-(the ``texture_fwd`` kernel on CUDA) -> SH light -> compose.  Layouts are the
+camera -> rasterize (the ``raster_fwd`` / ``raster_bwd`` kernels on CUDA) ->
+masked texture (the ``texture_fwd`` / ``texture_bwd`` kernels on CUDA) -> SH
+light -> compose.  Layouts are the
 JAX package's: images NHWC in [0, 1], textures (B, 2H, W, 3), the attribute
 dict with the reference's keys.  The template (``vertices_init``) is not
 stored per call: callers pass predicted ``vertices`` in the attribute dict.
@@ -15,7 +17,10 @@ import torch
 
 from ..geometry import camera as cam
 from ..geometry import mesh as mesh_ops
+from .. import resolve_device
 from ..geometry.obj_io import load_obj
+from ..losses import attributes as att_losses
+from ..losses import mesh_reg, recon
 from ..ops.rasterize import rasterize_fused
 from ..ops.sampling import texture_render
 from ..ops.shading import spherical_harmonic_lighting
@@ -23,8 +28,11 @@ from ..ops.shading import spherical_harmonic_lighting
 
 class DiffRender:
     def __init__(self, mesh_name: str, image_size: int, ratio: float = 1.0,
-                 init_ellipsoid: float = 1.0, sigmainv: float = 7000.0,
-                 soft_mode: str = "line", device=None):
+                 init_ellipsoid: float = 1.0, image_weight: float = 0.1,
+                 lambda_lpl: float = 0.1, lambda_flat: float = 0.001,
+                 sigmainv: float = 7000.0, soft_mode: str = "line", device="cuda"):
+        """Builds on the card unless ``device`` names another device."""
+        device = resolve_device(device)
         if soft_mode != "line":
             raise NotImplementedError(
                 f"soft_mode={soft_mode!r}: only 'line' is ported (the 'exact' "
@@ -34,6 +42,9 @@ class DiffRender:
         self.ratio = ratio
         self.render_height = round(ratio * image_size)
         self.render_width = int(image_size)
+        self.image_weight = image_weight
+        self.lambda_lpl = lambda_lpl
+        self.lambda_flat = lambda_flat
         self.sigmainv = sigmainv
 
         camera_fovy = math.atan(1.0 / 2.5) * 2
@@ -52,6 +63,11 @@ class DiffRender:
         self.vertices_laplacian_matrix = dev(
             mesh_ops.uniform_laplacian(self.num_vertices, faces))
         self.vertices_init = dev(vertices_init)  # (V, 3) initial template
+        self.sign_init = torch.sign(self.vertices_init[:, 2])
+        self.flip_index = dev(mesh_ops.flip_index(vertices_init))
+        edges, e2f = mesh_ops.edge2faces(faces)
+        self.edges = dev(edges)
+        self.edge2faces = dev(e2f)
         self.faces = dev(faces)
         self.face_uvs = dev(mesh.uvs[mesh.face_uvs_idx])  # (F, 3, 2)
 
@@ -71,12 +87,13 @@ class DiffRender:
         return cam.prepare_vertices(attributes["vertices"], self.faces, self.cam_proj,
                                     cam_transform)
 
-    @torch.no_grad()
-    def render(self, **attributes):
-        """Forward render -> (rgba (B, H, W, 4), attributes), the attributes
-        extended with 'face_normals', 'imnormal', 'faces_image',
-        'visiable_faces' and the (always zero) drop counters.  Forward only:
-        the kernels' backward passes are not ported yet."""
+    def render(self, no_mask: bool = False, **attributes):
+        """Render -> (rgba (B, H, W, 4), attributes), the attributes extended
+        with 'face_normals', 'imnormal', 'faces_image', 'visiable_faces' and
+        the (always zero) drop counters.  Differentiable with respect to the
+        vertices, the camera, the textures and the lights."""
+        if no_mask:
+            raise NotImplementedError("no_mask (the bg option) is not ported")
         B = attributes["azimuths"].shape[0]
         textures = attributes["textures"]
         face_vertices_camera, face_vertices_image, face_normals = self.project(attributes)
@@ -101,9 +118,43 @@ class DiffRender:
         return rgbs, attributes
 
 
-def deep_copy(att: dict, index=None) -> dict:
+    # ------------------------------------------------------------------ losses
+    def recon_att(self, pred_att, target_att, L1=False, chamfer=False, azim=1.0):
+        return att_losses.recon_att(pred_att, target_att, L1=L1, chamfer=chamfer, azim=azim)
+
+    def recon_data(self, pred_data, gt_data, no_mask=False, contour=0.0):
+        return recon.recon_data(pred_data, gt_data, image_weight=self.image_weight,
+                                no_mask=no_mask, contour=contour)
+
+    def recon_flip(self, att, L1=False):
+        return mesh_reg.flip_loss(att["delta_vertices"], self.flip_index, self.sign_init,
+                                  L1=L1)
+
+    def calc_reg_loss(self, att):
+        return mesh_reg.laplacian_flat_loss(
+            att["delta_vertices"], att["face_normals"], self.vertices_laplacian_matrix,
+            self.edge2faces, lambda_lpl=self.lambda_lpl, lambda_flat=self.lambda_flat)
+
+    def calc_reg_edge(self, vertices):
+        return mesh_reg.edge_loss(vertices, self.edges)
+
+    def calc_reg_depth(self, vertices):
+        return mesh_reg.depth_loss(vertices)
+
+    def calc_reg_depthR(self, vertices, temp=2.0, eps=0.001):
+        return mesh_reg.depth_loss_R(vertices, self.sign_init, ratio=self.ratio, temp=temp,
+                                     eps=eps)
+
+    def calc_reg_depthC(self, vertices, eps=0.001):
+        return mesh_reg.depth_loss_C(vertices, self.sign_init, ratio=self.ratio, eps=eps)
+
+    def calc_reg_deform(self, delta_vertices):
+        return mesh_reg.deform_loss(delta_vertices)
+
+
+def deep_copy(att: dict, index=None, detach: bool = False) -> dict:
     """Select / clone the renderable subset of an attribute dict
-    (reference networks.py:146-161)."""
+    (reference networks.py:146-161); ``detach`` cuts it from the graph."""
     copy_keys = ["azimuths", "bg", "biases", "elevations", "distances",
                  "vertices", "delta_vertices", "textures", "lights"]
     out = {}
@@ -116,5 +167,5 @@ def deep_copy(att: dict, index=None) -> dict:
             continue
         if index is not None:
             value = value[index]
-        out[key] = value.clone()
+        out[key] = value.detach().clone() if detach else value.clone()
     return out

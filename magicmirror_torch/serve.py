@@ -9,9 +9,8 @@ covers: ``ServeOptions`` defaults are those of
 
     opt = ServeOptions()
     dr = DiffRender(opt.template_path, opt.imageSize, ratio=opt.ratio,
-                    init_ellipsoid=opt.ellipsoid, soft_mode=opt.soft_mode,
-                    device="cuda")
-    netE = build_models(opt, dr, "cuda")            # then load weights
+                    init_ellipsoid=opt.ellipsoid, soft_mode=opt.soft_mode)
+    netE = build_models(opt, dr)                    # then load weights
     rec = Reconstructor(netE, dr, opt)
     out = rec(images, generator=torch.Generator("cuda").manual_seed(0))
 
@@ -28,10 +27,13 @@ import dataclasses
 import torch
 from torch.nn.modules.batchnorm import _BatchNorm
 
+from . import resolve_device
 from .models.attribute_encoder import AttributeEncoder
 from .render.renderer import DiffRender, deep_copy
 
-_BACKBONES = {"pretrainc": "none", "pretrains": "hr18sv2", "pretraint": "res34"}
+# the backbones the port has, per flag
+_BACKBONES = {"pretrainc": ("none",), "pretrains": ("hr18sv2", "none"),
+              "pretraint": ("res34", "none")}
 
 
 @dataclasses.dataclass
@@ -62,8 +64,8 @@ class ServeOptions:
     soft_mode: str = "line"
 
 
-def build_models(opt: ServeOptions, diff_render: DiffRender, device=None) -> AttributeEncoder:
-    """netE for ``opt`` on ``device`` (weights at their init, eval mode)."""
+def unported_options(opt) -> list[str]:
+    """The settings of ``opt`` that the port's encoder does not cover."""
     unported = []
     if opt.bg:
         unported.append("bg")
@@ -77,16 +79,25 @@ def build_models(opt: ServeOptions, diff_render: DiffRender, device=None) -> Att
         unported.append(f"soft_mode={opt.soft_mode}")
     if opt.norm != "bn":
         unported.append(f"norm={opt.norm}")
-    for flag, value in _BACKBONES.items():
-        if getattr(opt, flag) != value:
+    for flag, ported in _BACKBONES.items():
+        if getattr(opt, flag) not in ported:
             unported.append(f"{flag}={getattr(opt, flag)}")
+    return unported
+
+
+def build_models(opt, diff_render: DiffRender, device="cuda") -> AttributeEncoder:
+    """netE for ``opt`` (``ServeOptions`` or ``TrainOptions``) with its weights
+    at their init, in eval mode, on the card unless ``device`` names another
+    device."""
+    device = resolve_device(device)
+    unported = unported_options(opt)
     if unported:
         raise NotImplementedError(f"options outside the port: {', '.join(unported)}")
     netE = AttributeEncoder(
         num_vertices=diff_render.num_vertices, azi_scope=opt.azi_scope,
         elev_range=opt.elev_range, dist_range=opt.dist_range, nc=4, nk=opt.nk,
         pretraint=opt.pretraint, pretrainc=opt.pretrainc, pretrains=opt.pretrains,
-        coordconv=opt.coordconv, norm=opt.norm)
+        droprate=opt.droprate, coordconv=opt.coordconv, norm=opt.norm)
     return netE.to(device).eval()
 
 
@@ -106,17 +117,18 @@ def _no_tf32():
 @torch.no_grad()
 def update_bn(netE: AttributeEncoder, batches, template, lpl) -> None:
     """Re-estimate the BatchNorm running statistics from ``batches`` of
-    images in train mode, as ``torch.optim.swa_utils.update_bn`` does: reset,
-    then a cumulative average over the batches (the port of
-    ``make_update_bn``, ``magicmirror/train/state.py:101``; the port has no
-    dropout layers)."""
+    images, as ``torch.optim.swa_utils.update_bn`` does: reset, then a
+    cumulative average over the batches with the BatchNorm layers (and only
+    they: dropout stays off) in train mode.  The counterpart of
+    ``make_update_bn`` (``magicmirror/train/state.py:101``)."""
     bns = [m for m in netE.modules() if isinstance(m, _BatchNorm)]
     momenta = [m.momentum for m in bns]
+    was_training = netE.training
+    netE.eval()
     for m in bns:
         m.reset_running_stats()
         m.momentum = None
-    was_training = netE.training
-    netE.train()
+        m.train()
     for images in batches:
         netE(images, template, lpl)
     for m, momentum in zip(bns, momenta):

@@ -88,3 +88,24 @@ def test_camera_matches_reference():
     np.testing.assert_allclose(
         n(cam.face_normals_from_vertices(t(ref[0]), unit=True)),
         np.asarray(jcam.face_normals_from_vertices(ref[0], unit=True)), atol=ATOL)
+
+
+@pytest.mark.parametrize("name", ["sphere.obj", "sphere_dryrun.obj"])
+def test_flip_index_and_edge2faces_match_reference(name):
+    mesh = load_obj(os.path.join(REPO, "template", name))
+    v = mesh_ops.normalize_template(mesh.vertices)
+    assert np.array_equal(mesh_ops.flip_index(v), jmesh.flip_index(v))
+    edges, e2f = mesh_ops.edge2faces(mesh.faces)
+    jedges, je2f = jmesh.edge2faces(mesh.faces)
+    assert np.array_equal(edges, jedges) and np.array_equal(e2f, je2f)
+    assert edges.dtype == e2f.dtype == np.int64  # torch indexes with int64
+
+
+def test_edge2faces_duplicates_the_face_of_a_boundary_edge():
+    faces = np.array([[0, 1, 2], [0, 2, 3]])
+    edges, e2f = mesh_ops.edge2faces(faces)
+    jedges, je2f = jmesh.edge2faces(faces)
+    assert np.array_equal(edges, jedges) and np.array_equal(e2f, je2f)
+    shared = np.flatnonzero((edges == [0, 2]).all(1))[0]
+    assert sorted(e2f[shared]) == [0, 1]
+    assert all(e2f[i, 0] == e2f[i, 1] for i in range(len(edges)) if i != shared)

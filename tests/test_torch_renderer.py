@@ -8,6 +8,7 @@ tests/test_torch_geometry.py; and rgb, 1e-4: bench.py's textures are
 per-texel noise, so the ~1e-7 by which the two camera paths place a vertex
 moves uv by as much and the sampled colour by up to 64 texels per unit uv
 times a texel step of up to 1 (2.2e-5 seen).
+The render's gradients are in tests/test_torch_renderer_grad.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +27,7 @@ S, B = 64, 2
 @pytest.fixture(scope="module")
 def renders():
     jdr = JDiffRender(SPHERE, S, backend="xla")
-    dr = DiffRender(SPHERE, S)
+    dr = DiffRender(SPHERE, S, device="cpu")
     att = bench_attributes(np.asarray(jdr.vertices_init), B, S, seed=0)
     ref_rgba, ref_att = jdr.render(**{k: jnp.asarray(v) for k, v in att.items()}, bg=None)
     rgba, out = dr.render(**to_torch(att, "cpu"))
@@ -35,7 +36,7 @@ def renders():
 
 def test_template_and_topology_match(renders):
     jdr = JDiffRender(SPHERE, S, backend="xla")
-    dr = DiffRender(SPHERE, S)
+    dr = DiffRender(SPHERE, S, device="cpu")
     assert (dr.num_faces, dr.num_vertices) == (jdr.num_faces, jdr.num_vertices)
     assert np.array_equal(n(dr.vertices_init), np.asarray(jdr.vertices_init))
     assert np.array_equal(n(dr.faces), np.asarray(jdr.faces))
@@ -67,3 +68,36 @@ def test_deep_copy_selects_and_clones():
     assert one["bg"] is None and one["vertices"].shape == (1, 4, 3)
     one["azimuths"] += 1.0
     assert att["azimuths"][1] + 1.0 == one["azimuths"][0]
+
+
+def test_render_refuses_the_background_path():
+    dr = DiffRender(SPHERE, 16, device="cpu")
+    att = to_torch(bench_attributes(n(dr.vertices_init), 1, 16, seed=0), "cpu")
+    with pytest.raises(NotImplementedError, match="no_mask"):
+        dr.render(no_mask=True, **att)
+
+
+def test_deep_copy_detaches():
+    x = torch.ones(2, 3, requires_grad=True)
+    att = {"vertices": x * 2.0, "bg": None, "other": x}
+    kept = deep_copy(att)
+    cut = deep_copy(att, index=torch.tensor([1, 0]), detach=True)
+    assert kept["vertices"].requires_grad and not cut["vertices"].requires_grad
+    assert set(cut) == {"vertices", "bg"} and cut["bg"] is None
+
+
+def test_entry_points_build_on_the_card_unless_told_otherwise():
+    from magicmirror_torch import resolve_device
+    from magicmirror_torch.serve import ServeOptions, build_models
+    from magicmirror_torch.train import TrainOptions, build_trainer
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert DiffRender(SPHERE, 16).faces.is_cuda
+        return
+    dr = DiffRender(SPHERE, 16, device="cpu")
+    for build in (lambda: DiffRender(SPHERE, 16),
+                  lambda: build_models(ServeOptions(template_path=SPHERE), dr),
+                  lambda: build_trainer(TrainOptions(template_path=SPHERE))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()

@@ -65,7 +65,8 @@ def slice_runs():
                                     maxval=opt.azi_scope / 2)
 
     sopt = ServeOptions(template_path=SPHERE, imageSize=S)
-    dr = DiffRender(sopt.template_path, S, ratio=sopt.ratio, init_ellipsoid=sopt.ellipsoid)
+    dr = DiffRender(sopt.template_path, S, ratio=sopt.ratio, init_ellipsoid=sopt.ellipsoid,
+                    device="cpu")
     net = build_models(sopt, dr, "cpu")
     load_flax_variables(net, variables["params"], variables["batch_stats"])
     outs = Reconstructor(net, dr, sopt)(t(images), random_azimuths=t(random_az))
@@ -91,7 +92,7 @@ def test_attribute_dict_has_the_reference_keys(slice_runs):
 def test_turntable_rerenders_one_image(slice_runs):
     _, _, outs = slice_runs
     sopt = ServeOptions(template_path=SPHERE, imageSize=S)
-    dr = DiffRender(sopt.template_path, S)
+    dr = DiffRender(sopt.template_path, S, device="cpu")
     rec = Reconstructor(build_models(sopt, dr, "cpu"), dr, sopt)
     az = -torch.arange(0, 360, 90, dtype=torch.float32)
     rgba, normal = rec.turntable(outs[5], az, index=1)
@@ -111,7 +112,7 @@ def test_encoder_runs_without_tf32_whatever_the_caller_set(monkeypatch):
                          torch.backends.cuda.matmul.allow_tf32))
             return {}
 
-    dr = DiffRender(SPHERE, S)
+    dr = DiffRender(SPHERE, S, device="cpu")
     rec = Reconstructor(Probe(), dr, ServeOptions(template_path=SPHERE, imageSize=S))
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
@@ -130,9 +131,9 @@ def test_serve_options_defaults_are_the_flag_defaults():
 
 @pytest.mark.parametrize("change", [{"bg": True}, {"makeup": 1}, {"lambda_lc": 0.1},
                                    {"soft_mode": "exact"}, {"pretrains": "res50"},
-                                   {"pretraint": "none"}, {"pretrainc": "res18"}])
+                                   {"pretraint": "swin"}, {"pretrainc": "res18"}])
 def test_options_outside_the_port_raise(change):
-    dr = DiffRender(SPHERE, S)
+    dr = DiffRender(SPHERE, S, device="cpu")
     with pytest.raises(NotImplementedError):
         build_models(dataclasses.replace(ServeOptions(), **change), dr, "cpu")
 
@@ -150,6 +151,9 @@ def test_port_imports_without_jax_flax_yaml_or_pil():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr
-    assert "magicmirror_torch.serve" in names and "magicmirror_torch.kernels.build" in names
+    for module in ("serve", "kernels.build", "losses.gan", "losses.mesh_reg", "losses.recon",
+                   "models.discriminators", "train", "train.optim", "train.state",
+                   "train.train_step"):
+        assert f"magicmirror_torch.{module}" in names, module
     for name in names:  # and they import here too
         importlib.import_module(name)

@@ -63,3 +63,45 @@ def t(a, device="cpu"):
 def n(x):
     """torch tensor -> numpy."""
     return x.detach().cpu().numpy()
+
+
+DROP = {"dropout": jax.random.PRNGKey(0)}
+
+
+def sphere_template():
+    """(vertices (V, 3), dense Laplacian (V, V)) of sphere.obj, numpy."""
+    from magicmirror_torch.geometry import mesh as mesh_ops
+    from magicmirror_torch.geometry.obj_io import load_obj
+
+    mesh = load_obj(SPHERE)
+    v = mesh_ops.normalize_template(mesh.vertices)
+    return v, mesh_ops.uniform_laplacian(v.shape[0], mesh.faces)
+
+
+def train_pair(jmodule, tmodule, jargs, seed):
+    """Random Flax variables -> (JAX train-mode output, the updated Flax
+    batch_stats as a torch-keyed dict, the torch module loaded with the same
+    variables, in train mode)."""
+    from magicmirror_torch.models.convert import flax_to_state_dict, load_flax_variables
+
+    variables = random_variables(flax_shapes(jmodule, *jargs, train=False), seed)
+    ref, mutated = jmodule.apply(variables, *jargs, train=True, rngs=DROP,
+                                 mutable=["batch_stats"])
+    load_flax_variables(tmodule, variables["params"], variables.get("batch_stats"))
+    return ref, flax_to_state_dict({}, jax.device_get(mutated["batch_stats"])), tmodule.train()
+
+
+def assert_stats(module, ref_stats, tol):
+    """Every running statistic within tol of its buffer's largest value."""
+    state = module.state_dict()
+    assert ref_stats
+    for key, ref in ref_stats.items():
+        err = np.abs(n(state[key]) - ref).max()
+        assert err <= tol * max(np.abs(ref).max(), 1e-6), (key, err)
+
+
+def assert_close(out, ref, tol):
+    """Within tol of the reference's largest absolute value."""
+    ref = np.asarray(ref)
+    assert n(out).shape == ref.shape
+    assert np.abs(n(out) - ref).max() <= tol * np.abs(ref).max()
