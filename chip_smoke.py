@@ -3,39 +3,44 @@
     python3 chip_smoke.py
 
 Phases, each printing its results on its own line; any failure exits
-nonzero (nothing is caught, and there is no CPU fallback):
+nonzero (nothing is caught, and there is no CPU fallback).  Three
+configurations are driven: the defaults (sphere.obj, 128^2, soft_mode line),
+"market_smpl" (the human-body recipe: smpl_uv.obj, 13,776 faces, ratio 2,
+renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
   1. toolchain: torch, CUDA, the card, nvcc, nvidia-smi's name and power limit;
   2. build: compile magicmirror_torch/csrc with nvcc;
-  3. kernel parity on the card: the rasterizer kernel at the bench.py shape
-     (b32, 256^2, sphere.obj) and at b4 / 128^2, the texture kernel on its
-     outputs, each against its plain PyTorch version; the rasterizer's plain
-     mode (idx and sumlog only) against phase 1 of the plain path; the two
-     backward kernels against theirs, with a random cotangent and with the
-     one a reconstruction loss produces; at b4 / 128^2 the whole backward of
-     the rasterizer and of the texture sampler against autograd of the plain
-     path;
-  4. the slice: the default-configuration encoder (random weights from a
-     seed, BatchNorm statistics re-estimated on the smoke batch) serving b4
-     synthetic RGBA photos at 128^2 through Reconstructor, plus a 36-view
-     turntable; the launch counters must show both kernels on that path; the
-     same slice with the same weights on the CPU must agree; for each of
-     the five views, the faces that face the camera on one device only and
-     the alpha differences (kernel vs plain on the card, card vs CPU);
-  5. the training slice: the default-configuration trainer (weights from
-     seed 0, BatchNorm statistics re-estimated on the smoke batch); one
-     D-then-G step at b4 / 128^2 on the card against the same step (weights,
-     photos, draws; dropout off) on the CPU; then 40 steps at b32 with dropout
-     on: finite metrics, no skipped side, nothing dropped, a falling
-     reconstruction loss, and each of the four kernels launched twice a step;
-  6. timing with CUDA events (median after warm-up): the four kernels
-     against their plain versions (and the texture forward against
-     F.grid_sample) at b32 / 256^2 and b32 / 128^2 with each kernel's bound
-     for this run's inputs, the serving step and the train step with its
-     parts at b32 / 128^2;
+  3. kernel parity on the card, each kernel against its plain PyTorch version:
+     the 'line' rasterizer at the bench.py shape (b32, 256^2, sphere.obj) and
+     at b32 and b4 / 128^2, the masked texture kernel on its outputs, the rasterizer's
+     plain mode, the two backward kernels (random cotangent and the one a
+     reconstruction loss produces; at b4 the whole backward of both autograd
+     Functions against autograd of the plain path); the same two rasterizer
+     kernels on the dense template at b32, 128x64 and 256^2, near and far
+     cameras (counted under their dense names, nothing dropped, timed, with
+     the share of the all-faces scan); the 'exact' soft mode, fused and
+     plain, at the same three shapes, with its autograd backward at b4;
+     the unmasked texture mode, forward and backward;
+  4. the serving slice of each configuration: the full-width encoder (random
+     weights from a seed, BatchNorm statistics re-estimated on the smoke
+     batch) serving b4 synthetic RGBA photos through Reconstructor, plus a
+     36-view turntable; the launch counters must show the configuration's
+     kernels on that path and nothing dropped; the same slice with the same
+     weights on the CPU must agree; for each of the five views, the faces
+     that face the camera on one device only and the alpha differences;
+  5. the training slice: for the defaults one D-then-G step at b4 on the card
+     against the same step (weights, photos, draws; dropout off) on the CPU;
+     then for each configuration 12 to 24 steps at b32 with dropout on: finite
+     metrics, no skipped side, nothing dropped, a falling reconstruction
+     loss, and the configuration's kernels launched twice a step each;
+  6. timing with CUDA events (median after warm-up): every kernel against
+     its plain version (and the texture forwards against F.grid_sample) with
+     its bound for this run's inputs, the 'exact' mode's autograd backward,
+     and for each configuration the serving step and the train step with
+     its parts at b32;
   7. with ``--profile STEPS`` only: torch.profiler over STEPS serving steps,
-     STEPS train steps and STEPS critic updates alone at b32 / 128^2: the
-     device's busy share of the step, the kernel launches per step, and
-     device ms by kernel group.
+     STEPS train steps and STEPS critic updates alone at b32 / 128^2 of the
+     default configuration: the device's busy share of the step, the kernel
+     launches per step, and device ms by kernel group.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and magicmirror_torch
 only.
@@ -60,25 +65,55 @@ from magicmirror_torch import kernels, parity  # noqa: E402
 from magicmirror_torch.kernels import build  # noqa: E402
 from magicmirror_torch.losses import recon  # noqa: E402
 from magicmirror_torch.models.convert import init_from_seed  # noqa: E402
-from magicmirror_torch.ops.face_rows import SOFT_MARGIN, coeffs13, face_rows  # noqa: E402
-from magicmirror_torch.ops.rasterize import (pixel_grid, raster_bwd, raster_fwd,  # noqa: E402
-                                             raster_fwd_plain, rasterize_fused,
-                                             rasterize_fused_plain, rasterize_phase1,
-                                             rasterize_plain, soft_backward_plain)
+from magicmirror_torch.ops.face_rows import (DENSE_THRESHOLD, SOFT_MARGIN,  # noqa: E402
+                                             coeffs13, face_cull, face_rows, face_verts)
+from magicmirror_torch.ops.rasterize import (dibr_rasterization, pixel_grid,  # noqa: E402
+                                             raster_bwd, raster_fwd, raster_fwd_plain,
+                                             rasterize_fused, rasterize_fused_plain,
+                                             rasterize_phase1, rasterize_plain,
+                                             soft_backward_autograd, soft_backward_plain)
 from magicmirror_torch.ops.sampling import (texture_backward_plain,  # noqa: E402
-                                            texture_bwd, texture_fwd, texture_render,
-                                            texture_render_plain)
+                                            texture_bwd, texture_fwd, texture_mapping_plain,
+                                            texture_render, texture_render_plain)
 from magicmirror_torch.render.renderer import DiffRender  # noqa: E402
 from magicmirror_torch.render.synthetic import (bench_attributes,  # noqa: E402
                                                smooth_random, to_torch)
 from magicmirror_torch.serve import (Reconstructor, ServeOptions, _no_tf32,  # noqa: E402
-                                     build_models, update_bn)
+                                     build_models, preset_options, update_bn)
 from magicmirror_torch.train import TrainOptions, build_trainer, sample_draws  # noqa: E402
 from magicmirror_torch.train.train_step import (METRIC_KEYS, e_outputs,  # noqa: E402
                                                 running_statistics, update_d, update_e)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPHERE = os.path.join(ROOT, "template", "sphere.obj")
+SMPL = os.path.join(ROOT, "template", "smpl_uv.obj")
+# the three configurations: name -> (preset of serve.PRESETS or None, template,
+# the launches of one serving render, the launches of one train step)
+CONFIGS = {
+    "default": (None, SPHERE, {"raster_fwd": 1, "texture_fwd": 1},
+                {"raster_fwd": 2, "texture_fwd": 2, "raster_bwd": 2, "texture_bwd": 2}),
+    "market_smpl": ("market_smpl", SMPL, {"raster_fwd_dense": 1, "texture_fwd": 1},
+                    {"raster_fwd_dense": 2, "texture_fwd": 2, "raster_bwd_dense": 2,
+                     "texture_bwd": 2}),
+    "cub_exact": ("cub_exact", SPHERE, {"raster_exact_fused": 1, "texture_unmasked_fwd": 1},
+                  {"raster_exact_fused": 2, "texture_unmasked_fwd": 2,
+                   "texture_unmasked_bwd": 2}),
+}
+# train steps at b32 per configuration (a step of "cub_exact" takes seconds:
+# its silhouette backward is autograd of the plain phase 1)
+TRAIN_STEPS = {"default": 20, "market_smpl": 24, "cub_exact": 12}
+T0 = time.perf_counter()
+
+
+def options(cls, config, **overrides):
+    preset, template, _, _ = CONFIGS[config]
+    if preset is None:
+        return cls(template_path=template, **overrides)
+    return preset_options(cls, preset, template_path=template, **overrides)
+
+
+def shape_of(dr, batch):
+    return f"b{batch}/{dr.render_height}x{dr.render_width}"
 DEV = torch.device("cuda:0")
 SEED = 0
 
@@ -90,7 +125,9 @@ def require(ok, what):
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One result line; ``t`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0, 1), **fields}),
+          flush=True)
 
 
 def cuda_ms(fn, warmup=3, iters=20):
@@ -168,15 +205,18 @@ PEAK_FP32_FLOPS = 67e12
 # float operations per unit of data-dependent work, counted from the kernels'
 # sources: per (pixel, surviving face) pair for the rasterizer, per covered
 # pixel for the texture sampler
-FLOPS_PER_UNIT = {"raster_fwd": 34, "raster_bwd": 46, "texture_fwd": 42, "texture_bwd": 78}
+FLOPS_PER_UNIT = {"raster_fwd": 34, "raster_bwd": 46, "texture_fwd": 42, "texture_bwd": 78,
+                  # 'exact': the winner test (23) and three segment distances (20 each)
+                  "raster_exact": 90}
 
 
-def live_pairs(rows, height, width, g=None):
+def live_pairs(rows, height, width, g=None, per_tile=False):
     """The (pixel, face) pairs the rasterizer kernels visit for these face
     rows: per 16x16 tile the faces that survive the kernels' culling rule
     (front-facing, bbox +- the soft margin meets the tile), times 256 pixels.
     With ``g`` (B, H, W), only the tiles where g is not all zero count: the
-    backward kernel leaves the others at once."""
+    backward kernel leaves the others at once.  ``per_tile``: the faces live
+    per tile, (B, TY, TX), instead of the total."""
     dev = rows.device
     nz, xmin, xmax = rows[..., 25], rows[..., 12], rows[..., 13]
     ymin, ymax = rows[..., 14], rows[..., 15]
@@ -195,6 +235,8 @@ def live_pairs(rows, height, width, g=None):
         B = g.shape[0]
         active = g.reshape(B, height // 16, 16, width // 16, 16).abs().amax(dim=(2, 4)) > 0
         counts = counts * active
+    if per_tile:
+        return counts
     return int(counts.sum().item()) * 256
 
 
@@ -213,21 +255,209 @@ def chain_to_vertices(fvi, G):
     return fvi.grad
 
 
-def synthetic_photos(dr, batch, seed):
+def synthetic_photos(dr, batch, seed, elev_range="0~30"):
     """RGBA photos: the template under a smooth random texture, rendered at
-    bench.py's camera distribution."""
+    bench.py's camera distribution, its elevations U(0, 30) mapped onto the
+    configuration's ``elev_range`` (what its camera encoder can answer)."""
     att = bench_attributes(dr.vertices_init.cpu().numpy(), batch, dr.image_size, seed)
-    att["textures"] = smooth_random((batch, 2 * dr.image_size, dr.image_size, 3), seed)
+    if elev_range != "0~30":
+        lo, hi = (float(v) for v in elev_range.split("~"))
+        att["elevations"] = (lo + (hi - lo) * att["elevations"] / 30.0).astype("float32")
+    att["textures"] = smooth_random((batch, 2 * dr.render_height, dr.render_width, 3), seed)
     with torch.no_grad():
         return dr.render(**to_torch(att, dr.vertices_init.device))[0]
 
 
-def raster_case(size, batch, seed):
-    """The bench.py attribute distribution projected for the rasterizer."""
-    dr = DiffRender(SPHERE, size, device=DEV)
-    att = to_torch(bench_attributes(dr.vertices_init.cpu().numpy(), batch, size, seed), DEV)
+def raster_case(size, batch, seed, template=SPHERE, height=None, distances=None):
+    """The bench.py attribute distribution projected for the rasterizer; a
+    render taller than wide is the Market shape (ratio = height / size with
+    ellipsoid 2); ``distances`` = (lo, hi) replaces bench.py's U(2, 4)."""
+    height = height or size
+    dr = DiffRender(template, size, ratio=height / size,
+                    init_ellipsoid=2.0 if height != size else 1.0, device=DEV)
+    att = bench_attributes(dr.vertices_init.cpu().numpy(), batch, size, seed, height=height)
+    if distances is not None:
+        lo, hi = distances
+        att["distances"] = (lo + (hi - lo) * (att["distances"] - 2.0) / 2.0).astype("float32")
+    att = to_torch(att, DEV)
     fvc, fvi, fn = dr.project(att)
     return (fvi, fvc[..., 2], fn[..., 2], dr.face_uvs, fn), att["textures"]
+
+
+def once_ms(fn):
+    """Milliseconds of one run of ``fn`` (CUDA events) -> (ms, result): for
+    the plain versions that take seconds."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def raster_work(rows, height, width, g=None):
+    """(bytes a rasterizer launch must move, its (pixel, face) pairs): the
+    face tables read once; 32 B a pixel written by the fused forward, or g read and
+    13 moments a face written by the backward (``g`` given)."""
+    B, F1 = rows.shape[0], rows.shape[1]
+    P = B * height * width
+    tables = (rows.numel() + B * F1 * 4) * 4  # the rows and their cull table
+    if g is None:
+        return tables + P * 32, live_pairs(rows, height, width)
+    return (tables + P * 4 + B * (F1 - 1) * 13 * 4,
+            live_pairs(rows, height, width, g.reshape(B, height, width)))
+
+
+def dense_parity(height, width, distances, card, errs):
+    """K1's and K2's kernels on the dense template (smpl_uv.obj, 13,776
+    faces) at b32 against their plain versions, timed, with their bounds for
+    these inputs and the time of the all-faces scan alone (the same launch on
+    rows that all face away: every tile stages every chunk and finds nothing
+    live) -> the timing dict."""
+    B = 32
+    args, _ = raster_case(width, B, SEED + height + int(10 * distances[1]), SMPL, height,
+                          distances)
+    fvi, fz, fnz = args[0], args[1], args[2]
+    rows = face_rows(*args).contiguous()
+    kernels.reset_launches()
+    out = raster_fwd(rows, 7000.0, height, width)
+    plain_ms, plain = once_ms(lambda: rasterize_fused_plain(*args, height=height, width=width))
+    stats = parity.raster_stats(out, plain)
+    _, _, dropped = rasterize_plain(fvi, fz, fnz, height=height, width=width)
+    stats["dropped"] = int(dropped.sum())
+    shape = f"b{B}/{height}x{width}/smpl_uv/dist{distances[0]:g}-{distances[1]:g}"
+    # 128x64 is held like any template.  At 256^2 the all-faces sum is wider
+    # (parity.py), and the sum over the faces the tiles keep shows why
+    uncut = height == 256
+    if uncut:
+        culled = rasterize_fused_plain(*args, height=height, width=width, tile_cull=True)
+        stats["soft_max_vs_tile_culled_plain"] = float((out[1] - culled[1]).abs().max())
+        stats["margin_cut_max"] = float((plain[1] - culled[1]).abs().max())
+        del culled
+    emit("parity_raster_dense", shape=shape, **stats)
+    parity.check_raster(stats, dense_uncut=uncut)
+    require(stats.get("soft_max_vs_tile_culled_plain", 0.0) <= parity.RASTER_TOL["soft"], stats)
+    require(stats["dropped"] == 0, stats)
+    errs["raster_fwd_dense"] = max(errs["raster_fwd_dense"], stats["soft_max"],
+                                   stats["normal_max"], stats["uv_max"])
+    gen = torch.Generator(device=DEV).manual_seed(SEED + height)
+    g_soft = torch.randn(out[1].shape, device=DEV, generator=gen)
+    g_sumlog = (g_soft * (out[1] - 1.0)).reshape(B, -1).contiguous()
+    G = raster_bwd(rows, g_sumlog, 7000.0, height, width)
+    require({k: v for k, v in kernels.LAUNCHES.items() if v}
+            == {"raster_fwd_dense": 2, "raster_bwd_dense": 1}, kernels.LAUNCHES)
+    plain_bwd_ms, G_plain = once_ms(lambda: soft_backward_plain(fvi, fnz, g_sumlog, 7000.0,
+                                                               height, width))
+    bstats = parity.raster_bwd_stats(G, G_plain, chain_to_vertices(fvi, G),
+                                     chain_to_vertices(fvi, G_plain))
+    emit("parity_raster_bwd_dense", shape=shape, cotangent="random", **bstats)
+    parity.check_raster_bwd(bstats)
+    errs["raster_bwd_dense"] = max(errs["raster_bwd_dense"], float((G - G_plain).abs().max()))
+
+    away = rows.clone()
+    away[..., 25] = -1.0  # normal z: every face culled, only the scan is left
+    cull, away_cull = face_cull(rows), face_cull(away)
+    t = {"raster_fwd_dense_ms": cuda_ms(lambda: raster_fwd(rows, 7000.0, height, width,
+                                                           cull=cull)),
+         "raster_fwd_dense_scan_only_ms": cuda_ms(lambda: raster_fwd(away, 7000.0, height,
+                                                                     width, cull=away_cull)),
+         "raster_fwd_dense_plain_ms": plain_ms,
+         "raster_bwd_dense_ms": cuda_ms(lambda: raster_bwd(rows, g_sumlog, 7000.0, height,
+                                                           width, cull)),
+         "raster_bwd_dense_scan_only_ms": cuda_ms(lambda: raster_bwd(away, g_sumlog, 7000.0,
+                                                                     height, width, away_cull)),
+         "raster_bwd_dense_plain_ms": plain_bwd_ms,
+         "face_rows_ms": cuda_ms(lambda: face_cull(face_rows(*args).contiguous()))}
+    work = {"raster_fwd": raster_work(rows, height, width),
+            "raster_bwd": raster_work(rows, height, width, g_sumlog)}
+    for name, (nbytes, units) in work.items():
+        t[f"{name}_dense_bound_ms"], t[f"{name}_dense_bound_by"] = bound_ms(name, nbytes, units)
+    # the busiest tile: how far the far camera piles the faces up
+    live = live_pairs(rows, height, width, per_tile=True)
+    emit("timing_dense", shape=shape, card=card, covered_pixels=int(out[4].sum()),
+         pairs=work["raster_fwd"][1], pairs_bwd=work["raster_bwd"][1],
+         busiest_tile_faces=int(live.max()), mean_tile_faces=float(live.mean()), **t)
+    return t
+
+
+def exact_parity(size, batch, errs):
+    """The 'exact' soft mode, fused and plain instantiation, against the
+    plain 'exact' path; at b4 the backward (autograd of the plain phase 1 by
+    chunks, and the winner's interpolation) of the fused and the two-phase
+    form against autograd of the whole plain path."""
+    shape = f"b{batch}/{size}^2"
+    args, _ = raster_case(size, batch, SEED + size)
+    fvi, fz, fnz = args[0], args[1], args[2]
+    kernels.reset_launches()
+    out = rasterize_fused(*args, height=size, width=size, soft_mode="exact")
+    plain = rasterize_fused_plain(*args, height=size, width=size, soft_mode="exact")
+    stats = parity.raster_stats(out, plain)
+    line_soft = rasterize_fused(*args, height=size, width=size)[1]
+    stats["soft_vs_line_max"] = float((out[1] - line_soft).abs().max())
+    emit("parity_raster_exact_fused", shape=shape, **stats)
+    parity.check_raster(stats)
+    require(stats["soft_vs_line_max"] > 1e-3, stats)  # the mode does change the silhouette
+    errs["raster_exact_fused"] = max(errs["raster_exact_fused"], stats["soft_max"],
+                                     stats["normal_max"], stats["uv_max"])
+    idx, sumlog, dropped = rasterize_plain(fvi, fz, fnz, height=size, width=size,
+                                           soft_mode="exact")
+    px, py = pixel_grid(size, size, DEV)
+    idx_p, sumlog_p = rasterize_phase1(px, py, fvi, fz, fnz, 7000.0, "exact")
+    pstats = {"idx_mismatch": int((idx.long() != idx_p).sum()),
+              "soft_max": float((torch.exp(sumlog) - torch.exp(sumlog_p)).abs().max()),
+              "dropped": int(dropped.sum())}
+    emit("parity_raster_exact", shape=shape, **pstats)
+    require(pstats["idx_mismatch"] <= parity.RASTER_TOL["idx_frac"] * idx.numel(), pstats)
+    require(pstats["soft_max"] <= parity.RASTER_TOL["soft"], pstats)
+    require(pstats["dropped"] == 0, pstats)
+    require({k: v for k, v in kernels.LAUNCHES.items() if v}
+            == {"raster_exact_fused": 1, "raster_fwd": 1, "raster_exact": 1}, kernels.LAUNCHES)
+    errs["raster_exact"] = max(errs["raster_exact"], pstats["soft_max"])
+    if batch > 4:  # autograd of the plain rasterizer keeps every (pixel, face) temporary
+        return
+    gen = torch.Generator(device=DEV).manual_seed(SEED + size + 5)
+    ws = [torch.randn(s_, device=DEV, generator=gen)
+          for s_ in (out[1].shape, out[2].shape, out[3].shape)]
+    grads = []
+    for fn in (rasterize_fused, dibr_rasterization, rasterize_fused_plain):
+        leaves = [a.detach().requires_grad_(True) for a in args]
+        _, soft_, uv_, normal_, _ = fn(*leaves, height=size, width=size, soft_mode="exact")
+        ((soft_ * ws[0]).sum() + (uv_ * ws[1]).sum() + (normal_ * ws[2]).sum()).backward()
+        grads.append((leaves[0].grad, leaves[4].grad))
+    rel = {name: [float((a - b).abs().max() / b.abs().max()) for a, b in zip(g, grads[2])]
+           for name, g in (("fused", grads[0]), ("two_phase", grads[1]))}
+    emit("parity_raster_exact_backward", shape=shape, d_fvi_and_d_normals_rel=rel)
+    require(max(max(v) for v in rel.values()) <= 1e-2, rel)
+
+
+def unmasked_parity(size, batch, errs):
+    """The unmasked texture mode, forward and backward, on the uv field of a
+    render: uncovered pixels carry uv = 0 and are sampled like any other; the
+    cotangent is the one the 'exact' render hands back, zero where nothing is
+    covered (it multiplies the sample by the coverage).  A random cotangent on
+    those pixels too would sum ~26,000 terms into the one texel under uv = 0,
+    where the order of the float32 sum alone moves d_textures by 1e-5 of its
+    largest value."""
+    args, textures = raster_case(size, batch, SEED + size)
+    _, _, uv, _, hard = rasterize_fused(*args, height=size, width=size)
+    kernels.reset_launches()
+    out = texture_fwd(uv, textures)
+    err = float((out - texture_mapping_plain(uv, textures)).abs().max())
+    g = torch.randn(out.shape, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(SEED + size + 6))
+    g = g * hard[..., None]
+    kernel_out = texture_bwd(g, uv, textures)
+    plain_out = texture_backward_plain(g, uv, textures)
+    stats = parity.texture_bwd_stats(kernel_out, plain_out, torch.ones_like(uv[..., 0]))
+    emit("parity_texture_unmasked", shape=f"b{batch}/{size}^2", max_abs=err, **stats)
+    require(err <= parity.TEXTURE_TOL, err)
+    parity.check_texture_bwd(stats)
+    require({k: v for k, v in kernels.LAUNCHES.items() if v}
+            == {"texture_unmasked_fwd": 1, "texture_unmasked_bwd": 1}, kernels.LAUNCHES)
+    errs["texture_unmasked_fwd"] = max(errs["texture_unmasked_fwd"], err)
+    errs["texture_unmasked_bwd"] = max(
+        errs["texture_unmasked_bwd"],
+        *(float((a - b).abs().max()) for a, b in zip(kernel_out, plain_out)))
 
 
 def backward_parity(size, batch, args, textures, fwd_out, errs):
@@ -323,21 +553,25 @@ VIEWS = ("Xer", "Xir", "Xir2", "Xer90", "Xer270")  # the eval step's renders
 
 @torch.inference_mode()
 def view_witness(dr, dr_cpu, att_gpu, att_cpu):
-    """Where one view's alpha differs between the card and the CPU, and why:
-    the faces that face the camera on one device only (and the largest
-    |normal z| among them), the pixels beyond the slice's alpha tolerance,
+    """Where one view differs between the card and the CPU, and why: the
+    faces that face the camera on one device only (and the largest |normal z|
+    among them), the pixels whose winner, and whose coverage, differs between
+    the devices, the pixels beyond the slice's alpha tolerance,
     and the alpha differences of the kernel against the plain path on the
     card's inputs and of the plain path on the card against it on the CPU."""
     H, W, sigma = dr.render_height, dr.render_width, dr.sigmainv
     fvc, fvi, fn = dr.project(att_gpu)
     fvc_c, fvi_c, fn_c = dr_cpu.project(att_cpu)
     args = (fvi, fvc[..., 2], fn[..., 2], dr.face_uvs, fn)
-    soft_k1 = rasterize_fused(*args, sigmainv=sigma, height=H, width=W)[1].cpu()
-    soft_plain = rasterize_fused_plain(*args, sigmainv=sigma, height=H, width=W)[1].cpu()
-    soft_cpu = rasterize_fused_plain(fvi_c, fvc_c[..., 2], fn_c[..., 2], dr_cpu.face_uvs, fn_c,
-                                     sigmainv=sigma, height=H, width=W)[1]
+    kw = dict(sigmainv=sigma, height=H, width=W, soft_mode=dr.soft_mode)
+    idx_k1, soft_k1 = (t.cpu() for t in rasterize_fused(*args, **kw)[:2])
+    soft_plain = rasterize_fused_plain(*args, **kw)[1].cpu()
+    idx_cpu, soft_cpu = rasterize_fused_plain(fvi_c, fvc_c[..., 2], fn_c[..., 2],
+                                              dr_cpu.face_uvs, fn_c, **kw)[:2]
     flips = (fn[..., 2] > 0).cpu() != (fn_c[..., 2] > 0)
     return {"facing_flips": int(flips.sum()),
+            "winner_differs_pixels": int((idx_k1 != idx_cpu).sum()),
+            "coverage_differs_pixels": int(((idx_k1 < 0) != (idx_cpu < 0)).sum()),
             "flipped_normal_z_max": (float(fn_c[..., 2].abs()[flips].max())
                                      if flips.any() else None),
             "alpha_over_pixels": int(((soft_k1 - soft_cpu).abs()
@@ -351,14 +585,81 @@ def metric_floats(metrics):
     return {k: float(v) for k, v in metrics.items()}
 
 
-def training_slice(dr, dr_cpu, photos):
-    """Phase 5 -> (kernel launches of the 40 steps, the b32 trainer)."""
+def build_slice(config):
+    """The renderer (card and CPU), the full-width encoder with weights from
+    the seed on both devices, b4 synthetic photos, the BatchNorm statistics
+    re-estimated on them, and the two Reconstructors."""
+    opt = options(ServeOptions, config)
+    S = opt.imageSize
+    kw = dict(ratio=opt.ratio, init_ellipsoid=opt.ellipsoid, soft_mode=opt.soft_mode)
+    dr = DiffRender(opt.template_path, S, device=DEV, **kw)
+    dr_cpu = DiffRender(opt.template_path, S, device="cpu", **kw)
+    net_cpu = init_from_seed(build_models(opt, dr_cpu, "cpu"), SEED)
+    netE = build_models(opt, dr, DEV)
+    netE.load_state_dict(net_cpu.state_dict())
+    photos = synthetic_photos(dr, 4, SEED + 1, opt.elev_range)
+    update_bn(netE, [photos], dr.vertices_init, dr.vertices_laplacian_matrix)
+    net_cpu.load_state_dict(netE.state_dict())
+    return opt, dr, dr_cpu, photos, Reconstructor(netE, dr, opt), Reconstructor(net_cpu, dr_cpu,
+                                                                               opt)
+
+
+def serving_slice(config):
+    """Phase 4 for one configuration -> (launches of the served step and the
+    turntable, the card's Reconstructor, both renderers, the b4 photos)."""
+    opt, dr, dr_cpu, photos, rec, rec_cpu = build_slice(config)
+    H, W = dr.render_height, dr.render_width
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    turn_az = -torch.arange(0, 360, 10, dtype=torch.float32, device=DEV)
+
+    kernels.reset_launches()
+    outs = rec(photos, generator=gen)
+    turn_rgba, turn_normal = rec.turntable(outs[5], turn_az)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    renders = list(outs[:5]) + [turn_rgba]
+    emit("slice", config=config, photos=list(photos.shape), faces=dr.num_faces,
+         parameters=sum(p.numel() for p in rec.netE.parameters()), launches=launches,
+         coverage=[round(float(r[..., 3].mean()), 4) for r in renders],
+         azimuths=[round(float(a), 3) for a in outs[5]["azimuths"]],
+         dropped_faces=int(outs[5]["dropped_faces"].sum()),
+         dropped_tex_chunks=int(outs[5]["dropped_tex_chunks"].sum()))
+    require(all(bool(torch.isfinite(r).all()) for r in renders + [turn_normal]),
+            "non-finite render")
+    require(all(float(r[..., 3].mean()) > 0.0 for r in renders), "a render covers nothing")
+    require(turn_rgba.shape == (36, H, W, 4), turn_rgba.shape)
+    require(int(outs[5]["dropped_faces"].sum()) == 0
+            and int(outs[5]["dropped_tex_chunks"].sum()) == 0, "something was dropped")
+    # six renders: each launches the configuration's forward kernels, and no other
+    expect = {k: v * len(renders) for k, v in CONFIGS[config][2].items()}
+    require({k: v for k, v in launches.items() if v} == expect, (launches, expect))
+
+    # card vs CPU.  The plain rasterizer walks every face for every pixel: on
+    # the dense template the CPU takes two of the photos and the witness the
+    # first view (half a minute a render there)
+    dense = dr.num_faces >= DENSE_THRESHOLD
+    n_cpu, n_views = (2, 1) if dense else (4, len(VIEWS))
+    u = torch.rand(4, generator=torch.Generator(device=DEV).manual_seed(SEED + 2), device=DEV)
+    random_az = -(u * opt.azi_scope - opt.azi_scope / 2)[:n_cpu]
+    outs_gpu = rec(photos[:n_cpu], random_azimuths=random_az)
+    outs_cpu = rec_cpu(photos[:n_cpu].cpu(), random_azimuths=random_az.cpu())
+    sstats = parity.slice_stats(outs_cpu[:5], outs_gpu[:5], outs_cpu[5], outs_gpu[5])
+    emit("slice_gpu_vs_cpu", config=config, photos=n_cpu, **sstats)
+    views_gpu = (outs_gpu[5],) + rec.reposed(outs_gpu[5], random_az)
+    views_cpu = (outs_cpu[5],) + Reconstructor.reposed(outs_cpu[5], random_az.cpu())
+    emit("slice_views_gpu_vs_cpu", config=config,
+         views=[{"view": name, **view_witness(dr, dr_cpu, g, c)}
+                for name, g, c in list(zip(VIEWS, views_gpu, views_cpu))[:n_views]])
+    parity.check_slice(sstats, rgb_flip_pixels=4)
+    return launches, rec, dr, dr_cpu, photos
+
+
+def train_step_gpu_vs_cpu(dr, dr_cpu, photos):
+    """Phase 5 (a), default configuration: one step at b4 on the card against
+    the same step on the CPU: the same weights (drawn on the CPU from the
+    seed), BatchNorm statistics, photos and draws; dropout off."""
     S = dr.image_size
     lpl = dr.vertices_laplacian_matrix
-
-    # (a) one step at b4 on the card against the same step on the CPU: the
-    # same weights (drawn on the CPU from the seed), BatchNorm statistics,
-    # photos and draws; dropout off
     topt = TrainOptions(template_path=SPHERE, droprate="0,0,0")
     on_card, on_cpu = build_trainer(topt), build_trainer(topt, device="cpu")
     update_bn(on_card.state.netE, [photos], dr.vertices_init, lpl)
@@ -393,7 +694,7 @@ def training_slice(dr, dr_cpu, photos):
     rstats = parity.render_stats([Xer_cpu, Xir_cpu], [Xer, Xir])
     emit("train_step_gpu_vs_cpu", shape=f"b{photos.shape[0]}/{S}^2", card=m_card, cpu=m_cpu,
          rel=rel, launches=one_step, **rstats)
-    require(all(v == 2 for v in one_step.values()), one_step)
+    require({k: v for k, v in one_step.items() if v} == CONFIGS["default"][3], one_step)
     require(all(torch.isfinite(torch.tensor(list(m_card.values())))), m_card)
     # float32 on both sides through two train-mode passes of a 56M-parameter
     # encoder and their backward; the gradient norms sum 56M squares
@@ -401,12 +702,18 @@ def training_slice(dr, dr_cpu, photos):
         require(err <= (5e-2 if key.startswith("gnorm") else 1e-2), (key, err, rel))
     parity.check_train_renders(rstats)
 
-    # (b) 40 steps at b32 with dropout on, as examples/train_synthetic.py runs
-    # them: lr 3e-4, warm-up min(1, 0.01 + i / 20), four batches in turn
-    trainer = build_trainer(TrainOptions(template_path=SPHERE))
-    batches = [synthetic_photos(dr, 32, SEED + 10 + i) for i in range(4)]
-    update_bn(trainer.state.netE, batches[:1], dr.vertices_init, lpl)
-    steps = 40
+
+def train_steps(config, dr):
+    """Phase 5 (b) for one configuration: its TRAIN_STEPS steps at b32 with
+    dropout on, as examples/train_synthetic.py runs them (lr 3e-4, warm-up
+    min(1, 0.01 + i / 20), four batches in turn) -> (kernel launches of the
+    steps, the b32 trainer)."""
+    trainer = build_trainer(options(TrainOptions, config))
+    steps = TRAIN_STEPS[config]
+    batches = [synthetic_photos(dr, 32, SEED + 10 + i, trainer.opt.elev_range)
+               for i in range(4)]
+    update_bn(trainer.state.netE, batches[:1], dr.vertices_init, dr.vertices_laplacian_matrix)
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     history = [metric_floats(trainer.step(batches[i % 4], 3e-4, 3e-4,
@@ -416,26 +723,31 @@ def training_slice(dr, dr_cpu, photos):
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     data = [m["lossR_data"] for m in history]
-    first, last = statistics.mean(data[:5]), statistics.mean(data[-5:])
-    emit("train_40_steps", shape=f"b32/{S}^2", seconds=seconds, launches=launches,
-         lossR_data_first5=first, lossR_data_last5=last,
-         better_percent=100.0 * (first - last) / first, first=history[0], last=history[-1])
+    first, last = statistics.mean(data[:4]), statistics.mean(data[-4:])
+    emit("train_steps", config=config, shape=shape_of(dr, 32), steps=steps,
+         seconds=seconds, launches=launches, lossR_data_first4=first, lossR_data_last4=last,
+         better_percent=100.0 * (first - last) / first, lossR_data=data,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         first=history[0], last=history[-1])
     for i, m in enumerate(history):
         require(all(torch.isfinite(torch.tensor(list(m.values())))), (i, m))
         require(m["skipE"] == m["skipD"] == 0.0, (i, m))
         require(m["dropped_faces"] == m["dropped_tex_chunks"] == 0.0, (i, m))
     require(last < first, (first, last))
-    require(all(v == 2 * steps for v in launches.values()), launches)
+    expect = {k: v * steps for k, v in CONFIGS[config][3].items()}
+    require({k: v for k, v in launches.items() if v} == expect, (launches, expect))
     return launches, trainer
 
 
 def kernel_timing(size, card):
-    """The four kernels, their plain versions and the library call at b32,
-    with each kernel's bound for these inputs."""
+    """Every kernel mode that runs on sphere.obj, its plain version and the
+    library call at b32, with each kernel's bound for these inputs; and the
+    'exact' mode's backward, which is autograd of the plain phase 1."""
     B = 32
     args, textures = raster_case(size, B, SEED + 7)
-    fvi, fnz = args[0], args[2]
+    fvi, fz, fnz = args[0], args[1], args[2]
     rows = face_rows(*args).contiguous()
+    cull = face_cull(rows)  # kept, so that the kernel times are the kernels' alone
     _, soft, uv, _, hard = rasterize_fused(*args, height=size, width=size)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
     g_soft = torch.randn(soft.shape, device=DEV, generator=gen)
@@ -455,46 +767,90 @@ def kernel_timing(size, card):
     require(lib_err <= parity.TEXTURE_TOL, lib_err)
     t = {
         "raster_fwd_wrapper_ms": cuda_ms(lambda: rasterize_fused(*args, height=size, width=size)),
-        "raster_fwd_ms": cuda_ms(lambda: raster_fwd(rows, 7000.0, size, size)),
-        "raster_fwd_plain_mode_ms": cuda_ms(lambda: raster_fwd_plain(rows, 7000.0, size, size)),
+        "raster_fwd_ms": cuda_ms(lambda: raster_fwd(rows, 7000.0, size, size, cull=cull)),
+        "raster_fwd_plain_mode_ms": cuda_ms(lambda: raster_fwd_plain(rows, 7000.0, size, size,
+                                                                     cull=cull)),
         "raster_fwd_plain_ms": cuda_ms(lambda: rasterize_fused_plain(*args, height=size,
                                                                      width=size), 1, 5),
         "texture_fwd_ms": cuda_ms(lambda: texture_fwd(uv, textures, hard)),
         "texture_fwd_plain_ms": cuda_ms(lambda: texture_render_plain(uv, textures, hard)),
         "texture_fwd_library_ms": cuda_ms(library),
-        "raster_bwd_ms": cuda_ms(lambda: raster_bwd(rows, g_sumlog, 7000.0, size, size)),
+        "raster_bwd_ms": cuda_ms(lambda: raster_bwd(rows, g_sumlog, 7000.0, size, size, cull)),
         "raster_bwd_plain_ms": cuda_ms(lambda: soft_backward_plain(fvi, fnz, g_sumlog, 7000.0,
                                                                    size, size), 1, 5),
         "texture_bwd_ms": cuda_ms(lambda: texture_bwd(g_tex, uv, textures, hard)),
         "texture_bwd_plain_ms": cuda_ms(lambda: texture_backward_plain(g_tex, uv, textures,
                                                                        hard)),
     }
-    P, F1 = B * size * size, rows.shape[1]
+    # the modes of this slice: the 'exact' rasterizer and the unmasked sampler
+    verts = face_verts(fvi).contiguous()
+    px, py = pixel_grid(size, size, DEV)
+    exact = dict(height=size, width=size, soft_mode="exact")
+
+    def library_unmasked():
+        return F.grid_sample(tex_nchw, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False)
+
+    g_covered = g_tex * hard[..., None]
+    lib_err_unmasked = float((library_unmasked().permute(0, 2, 3, 1)
+                              - texture_fwd(uv, textures)).abs().max())
+    require(lib_err_unmasked <= parity.TEXTURE_TOL, lib_err_unmasked)
+    t.update({
+        "raster_fwd_plain_mode_plain_ms": cuda_ms(
+            lambda: rasterize_phase1(px, py, fvi, fz, fnz, 7000.0), 1, 3),
+        "raster_exact_fused_ms": cuda_ms(lambda: raster_fwd(rows, 7000.0, size, size, verts,
+                                                            cull)),
+        "raster_exact_fused_plain_ms": cuda_ms(lambda: rasterize_fused_plain(*args, **exact),
+                                               1, 3),
+        "raster_exact_ms": cuda_ms(lambda: raster_fwd_plain(rows, 7000.0, size, size, verts,
+                                                            cull)),
+        "raster_exact_plain_ms": cuda_ms(
+            lambda: rasterize_phase1(px, py, fvi, fz, fnz, 7000.0, "exact"), 1, 3),
+        "texture_unmasked_fwd_ms": cuda_ms(lambda: texture_fwd(uv, textures)),
+        "texture_unmasked_fwd_plain_ms": cuda_ms(lambda: texture_mapping_plain(uv, textures)),
+        "texture_unmasked_fwd_library_ms": cuda_ms(library_unmasked),
+        # with the cotangent of the 'exact' render: zero on uncovered pixels
+        "texture_unmasked_bwd_ms": cuda_ms(lambda: texture_bwd(g_covered, uv, textures)),
+        "texture_unmasked_bwd_plain_ms": cuda_ms(
+            lambda: texture_backward_plain(g_covered, uv, textures)),
+    })
+    if size == 128:  # the shape the train step runs it at; seconds at 256^2
+        t["raster_exact_backward_autograd_ms"] = cuda_ms(
+            lambda: soft_backward_autograd(fvi, fz, fnz, g_sumlog, 7000.0, size, size), 1, 3)
+    P = B * size * size
     covered = int(hard.sum().item())
-    pairs = live_pairs(rows, size, size)
-    pairs_bwd = live_pairs(rows, size, size, g_sumlog.reshape(B, size, size))
-    work = {  # name: (bytes read once and written once, units of data-dependent work)
-        "raster_fwd": (rows.numel() * 4 + P * 32, pairs),
-        "raster_bwd": (rows.numel() * 4 + P * 4 + B * (F1 - 1) * 13 * 4, pairs_bwd),
-        "texture_fwd": (P * 24 + textures.numel() * 4, covered),
-        "texture_bwd": (P * 32 + 2 * textures.numel() * 4, covered),
+    fwd_bytes, pairs = raster_work(rows, size, size)
+    bwd_bytes, pairs_bwd = raster_work(rows, size, size, g_sumlog)
+    tex_bytes = textures.numel() * 4
+    work = {  # name: (flops per unit, bytes read once and written once, units of work)
+        "raster_fwd": ("raster_fwd", fwd_bytes, pairs),
+        "raster_fwd_plain_mode": ("raster_fwd", fwd_bytes - P * 24, pairs),
+        "raster_bwd": ("raster_bwd", bwd_bytes, pairs_bwd),
+        "texture_fwd": ("texture_fwd", P * 24 + tex_bytes, covered),
+        "texture_bwd": ("texture_bwd", P * 32 + 2 * tex_bytes, covered),
+        "raster_exact_fused": ("raster_exact", fwd_bytes + verts.numel() * 4, pairs),
+        "raster_exact": ("raster_exact", fwd_bytes - P * 24 + verts.numel() * 4, pairs),
+        "texture_unmasked_fwd": ("texture_fwd", P * 20 + tex_bytes, P),
+        "texture_unmasked_bwd": ("texture_bwd", P * 28 + 2 * tex_bytes, P),
     }
-    for name, (nbytes, units) in work.items():
-        t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound_ms(name, nbytes, units)
+    for name, (flops, nbytes, units) in work.items():
+        t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound_ms(flops, nbytes, units)
     emit("timing_kernels", shape=f"b32/{size}^2", card=card, covered_pixels=covered,
-         pairs=pairs, pairs_bwd=pairs_bwd, library_max_abs_err=lib_err, **t)
+         pairs=pairs, pairs_bwd=pairs_bwd, library_max_abs_err=lib_err,
+         library_unmasked_max_abs_err=lib_err_unmasked, **t)
     return t
 
 
-def training_timing(trainer, dr, batch):
-    """The train step at b32 and its parts: the step as a user calls it; then
-    its three phases between CUDA events; the encoder's train-mode forward,
-    one render forward + backward and the two optimizer steps alone."""
+def training_timing(trainer, dr, batch, reps=10):
+    """The train step at b32 and its parts: the step as a user calls it
+    (median of ``reps``); then its three phases between CUDA events; the
+    encoder's train-mode forward, one render forward + backward and the two
+    optimizer steps alone."""
     state, opt = trainer.state, trainer.opt
-    step_ms = cuda_ms(lambda: trainer.step(batch, 3e-4, 3e-4), 2, 10)
+    step_ms = cuda_ms(lambda: trainer.step(batch, 3e-4, 3e-4), 2, reps)
     parts = {"forward_ms": [], "d_update_ms": [], "g_update_ms": []}
     with _no_tf32():
-        for _ in range(5):
+        for _ in range(max(2, reps // 2)):
             draws = sample_draws(opt, batch.shape[0], trainer.generator, DEV)
             before = [b.clone() for b in running_statistics(state.netE)]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -517,7 +873,7 @@ def training_timing(trainer, dr, batch):
         w = torch.randn((*batch.shape[:3], 4), device=DEV,
                         generator=torch.Generator(device=DEV).manual_seed(SEED))
         out["render_forward_backward_ms"] = cuda_ms(
-            lambda: (dr.render(**att)[0] * w).sum().backward(), 2, 10)
+            lambda: (dr.render(**att)[0] * w).sum().backward(), 2, reps)
         out["opt_e_step_ms"] = cuda_ms(state.opt_e.step, 2, 10)
         out["opt_d_step_ms"] = cuda_ms(state.opt_d.step, 2, 10)
     return {"step_ms": step_ms, "images_per_s": batch.shape[0] * 1000.0 / step_ms, **out}
@@ -543,7 +899,8 @@ def main(profile_steps=0):
 
     # 3. kernel parity, kernel vs plain on the same inputs
     errs = dict.fromkeys(kernels.LAUNCHES, 0.0)
-    for size, batch in ((256, 32), (128, 4)):
+    # b32 / 128^2 is the shape the default and the cub_exact train steps run at
+    for size, batch in ((256, 32), (128, 32), (128, 4)):
         args, textures = raster_case(size, batch, SEED + size)
         out = raster_fwd(face_rows(*args).contiguous(), 7000.0, size, size)
         plain = rasterize_fused_plain(*args, height=size, width=size)
@@ -560,80 +917,50 @@ def main(profile_steps=0):
         errs["texture_fwd"] = max(errs["texture_fwd"], tstats["max_abs"])
         backward_parity(size, batch, args, textures, out, errs)
         plain_mode_parity(size, batch, args, errs)
+        exact_parity(size, batch, errs)
+        unmasked_parity(size, batch, errs)
+    # the dense template: the Market shape and bench.py's, near and far cameras,
+    # and the recipe's own distance range (the main path's, kept for the summary)
+    dense = {(h, w, d): dense_parity(h, w, d, card, errs)
+             for h, w, d in ((128, 64, (2.0, 2.0)), (128, 64, (6.5, 6.5)),
+                             (128, 64, (2.0, 6.0)), (256, 256, (2.0, 2.0)),
+                             (256, 256, (6.5, 6.5)))}
     torch.cuda.synchronize()
 
-    # 4. the slice at the default configuration
-    opt = ServeOptions(template_path=SPHERE)
-    S = opt.imageSize
-    dr = DiffRender(opt.template_path, S, ratio=opt.ratio, init_ellipsoid=opt.ellipsoid,
-                    soft_mode=opt.soft_mode, device=DEV)
-    net_cpu = init_from_seed(build_models(opt, DiffRender(opt.template_path, S, device="cpu"),
-                                           "cpu"), SEED)
-    netE = build_models(opt, dr, DEV)
-    netE.load_state_dict(net_cpu.state_dict())
-    # synthetic photos: the template under a smooth random texture, rendered
-    photo_np = bench_attributes(dr.vertices_init.cpu().numpy(), 4, S, SEED + 1)
-    photo_np["textures"] = smooth_random((4, 2 * S, S, 3), SEED + 1)
-    photo_att = to_torch(photo_np, DEV)
-    photos, _ = dr.render(**photo_att)
-    update_bn(netE, [photos], dr.vertices_init, dr.vertices_laplacian_matrix)
-    net_cpu.load_state_dict(netE.state_dict())
-    rec = Reconstructor(netE, dr, opt)
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
-    turn_az = -torch.arange(0, 360, 10, dtype=torch.float32, device=DEV)
-
-    kernels.reset_launches()
-    outs = rec(photos, generator=gen)
-    turn_rgba, turn_normal = rec.turntable(outs[5], turn_az)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    renders = list(outs[:5]) + [turn_rgba]
-    emit("slice", photos=list(photos.shape), launches=launches,
-         coverage=[round(float(r[..., 3].mean()), 4) for r in renders],
-         azimuths=[round(float(a), 3) for a in outs[5]["azimuths"]])
-    require(all(bool(torch.isfinite(r).all()) for r in renders + [turn_normal]),
-            "non-finite render")
-    require(all(float(r[..., 3].mean()) > 0.0 for r in renders), "a render covers nothing")
-    require(turn_rgba.shape == (36, S, S, 4), turn_rgba.shape)
-    for name in ("raster_fwd", "texture_fwd"):
-        require(launches[name] >= len(renders), launches)
-
-    dr_cpu = DiffRender(opt.template_path, S, ratio=opt.ratio, init_ellipsoid=opt.ellipsoid,
-                         device="cpu")
-    rec_cpu = Reconstructor(net_cpu, dr_cpu, opt)
-    u = torch.rand(4, generator=torch.Generator(device=DEV).manual_seed(SEED + 2), device=DEV)
-    random_az = -(u * opt.azi_scope - opt.azi_scope / 2)
-    outs_gpu = rec(photos, random_azimuths=random_az)
-    outs_cpu = rec_cpu(photos.cpu(), random_azimuths=random_az.cpu())
-    sstats = parity.slice_stats(outs_cpu[:5], outs_gpu[:5], outs_cpu[5], outs_gpu[5])
-    emit("slice_gpu_vs_cpu", **sstats)
-    views_gpu = (outs_gpu[5],) + rec.reposed(outs_gpu[5], random_az)
-    views_cpu = (outs_cpu[5],) + Reconstructor.reposed(outs_cpu[5], random_az.cpu())
-    emit("slice_views_gpu_vs_cpu",
-         views=[{"view": name, **view_witness(dr, dr_cpu, g, c)}
-                for name, g, c in zip(VIEWS, views_gpu, views_cpu)])
-    parity.check_slice(sstats)
-
-    # 5. the training slice at the default configuration
-    train_launches, trainer = training_slice(dr, dr_cpu, photos)
+    # 4. the serving slice and 5. the training slice of each configuration
+    serve_launches, train_launches, recs, trainers = {}, {}, {}, {}
+    for config in CONFIGS:
+        serve_launches[config], rec, dr, dr_cpu, photos = serving_slice(config)
+        if config == "default":
+            train_step_gpu_vs_cpu(dr, dr_cpu, photos)
+        train_launches[config], trainers[config] = train_steps(config, dr)
+        recs[config] = (rec, dr, photos)
+        del dr_cpu
 
     # 6. timing (CUDA events, median after warm-up)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     times = {size: kernel_timing(size, card) for size in (256, 128)}
-    batch = photos.repeat(8, 1, 1, 1)  # b32 / 128^2
-    encode_ms = cuda_ms(lambda: rec.encode(batch), iters=10)
-    att32 = rec.encode(batch)
-    render_ms = cuda_ms(lambda: dr.render(**att32), iters=10)
-    step_ms = cuda_ms(lambda: rec(batch, generator=gen), iters=10)
-    emit("timing_serving", shape="b32/128^2", card=card, sm_clock_power_temp=smi,
-         encode_ms=encode_ms, render_ms=render_ms, step_ms=step_ms,
-         images_per_s=32 * 1000.0 / step_ms)
-    train_batch = synthetic_photos(dr, 32, SEED + 20)
-    emit("timing_training", shape="b32/128^2", card=card,
-         **training_timing(trainer, dr, train_batch))
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    for config, (rec, dr, photos) in recs.items():
+        batch = photos.repeat(8, 1, 1, 1)  # b32
+        encode_ms = cuda_ms(lambda: rec.encode(batch), iters=10)
+        att32 = rec.encode(batch)
+        render_ms = cuda_ms(lambda: dr.render(**att32), iters=10)
+        step_ms = cuda_ms(lambda: rec(batch, generator=gen), iters=10)
+        emit("timing_serving", config=config, shape=shape_of(dr, 32), card=card,
+             sm_clock_power_temp=smi, encode_ms=encode_ms, render_ms=render_ms,
+             step_ms=step_ms, images_per_s=32 * 1000.0 / step_ms)
+        train_batch = synthetic_photos(dr, 32, SEED + 20, trainers[config].opt.elev_range)
+        emit("timing_training", config=config, shape=shape_of(dr, 32), card=card,
+             **training_timing(trainers[config], dr, train_batch,
+                               reps=4 if config == "cub_exact" else 10))
     if profile_steps:
+        rec, dr, photos = recs["default"]
+        trainer = trainers["default"]
+        batch = photos.repeat(8, 1, 1, 1)
+        train_batch = synthetic_photos(dr, 32, SEED + 20)
         emit("profile_serving", shape="b32/128^2", card=card,
              **profile(lambda: rec(batch, generator=gen), profile_steps))
         emit("profile_training", shape="b32/128^2", card=card,
@@ -646,25 +973,44 @@ def main(profile_steps=0):
              **profile(_no_tf32()(lambda: update_d(trainer.state, outs, trainer.opt, draws,
                                                    3e-4, 1.0)), profile_steps))
 
-    sources = {
-        "raster_fwd": ("magicmirror_torch/csrc/raster_fwd.cu",
-                       "magicmirror/ops/pallas/rasterize_v4.py:988"),
-        "texture_fwd": ("magicmirror_torch/csrc/texture_fwd.cu",
-                        "magicmirror/ops/pallas/texture_cells.py:214"),
-        "raster_bwd": ("magicmirror_torch/csrc/raster_bwd.cu",
-                       "magicmirror/ops/pallas/rasterize_v4.py:581"),
-        "texture_bwd": ("magicmirror_torch/csrc/texture_bwd.cu",
-                        "magicmirror/ops/pallas/texture_cells.py:355"),
+    # the kernels' summary: name -> (source, the TPU kernel it replaces, the
+    # configuration whose main path launches it, where its times were taken)
+    csrc, pallas = "magicmirror_torch/csrc/", "magicmirror/ops/pallas/"
+    t128, market = times[128], dense[(128, 64, (2.0, 6.0))]
+    kernel_table = {
+        "raster_fwd": ("raster_fwd.cu", "rasterize_v4.py:988", "default", t128),
+        "texture_fwd": ("texture_fwd.cu", "texture_cells.py:214", "default", t128),
+        "raster_bwd": ("raster_bwd.cu", "rasterize_v4.py:581", "default", t128),
+        "texture_bwd": ("texture_bwd.cu", "texture_cells.py:355", "default", t128),
+        # the plain mode of the forward kernel and its backward: on no main path
+        "raster_fwd_plain_mode": ("raster_fwd.cu", "rasterize_v4.py:372", None, t128),
+        "raster_bwd_plain_mode": ("raster_bwd.cu", "rasterize_v4.py:482", None, t128),
+        "raster_fwd_dense": ("raster_fwd.cu", "rasterize_v6.py:142", "market_smpl", market),
+        "raster_bwd_dense": ("raster_bwd.cu", "rasterize_v6.py:288", "market_smpl", market),
+        # phase 1 alone in 'exact' mode (rasterize_plain, dibr_rasterization):
+        # on no main path either, the render is the fused instantiation
+        "raster_exact": ("raster_fwd.cu", "rasterize_tpu.py:70,236,355", None, t128),
+        "raster_exact_fused": ("raster_fwd.cu", "rasterize_tpu.py:621", "cub_exact", t128),
+        "texture_unmasked_fwd": ("texture_fwd.cu", "texture_tpu.py:35", "cub_exact", t128),
+        "texture_unmasked_bwd": ("texture_bwd.cu", "texture_tpu.py:35", "cub_exact", t128),
     }
     summary = []
-    for name, (source, replaces) in sources.items():
-        t = times[128]
-        summary.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": train_launches[name], "launches_serving": launches[name],
-                        "max_abs_err": errs[name], "ms": t[f"{name}_ms"],
-                        "plain_ms": t[f"{name}_plain_ms"], "bound_ms": t[f"{name}_bound_ms"],
-                        "bound_by": t[f"{name}_bound_by"],
-                        "library_ms": t.get(f"{name}_library_ms")})
+    for name, (source, replaces, config, t) in kernel_table.items():
+        counted = {"raster_fwd_plain_mode": "raster_fwd",
+                   "raster_bwd_plain_mode": "raster_bwd"}.get(name, name)
+        timed = "raster_bwd" if name == "raster_bwd_plain_mode" else name
+        summary.append({
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": pallas + replaces, "config": config,
+            "launches": ((train_launches[config][name] or serve_launches[config][name])
+                         if config else 0),
+            "launches_training": train_launches[config][name] if config else 0,
+            "launches_serving": serve_launches[config][name] if config else 0,
+            "max_abs_err": errs[counted], "ms": t[f"{timed}_ms"],
+            "plain_ms": t[f"{timed}_plain_ms"], "bound_ms": t[f"{timed}_bound_ms"],
+            "bound_by": t[f"{timed}_bound_by"], "library_ms": t.get(f"{timed}_library_ms")})
+        if config:
+            require(summary[-1]["launches"] > 0, summary[-1])
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@
 // stream backward, reached through _soft_backward from the custom VJPs of
 // rasterize_fused_v5 / rasterize_plain_v4).  The same function is computed by
 // rasterize_v4.py::_bwd_kernel (static capacity) and rasterize_v6.py::
-// _bwd6_kernel (dense templates).
+// _bwd6_kernel (dense templates, F >= 2048: a tile here culls its own faces
+// and has no capacity, so the dense template runs this kernel as it is).
 //
 // What it computes: with g[p] the cotangent of sumlog at pixel p, for each
 // front-facing face f and each pixel p near it,
@@ -51,8 +52,9 @@ constexpr int SLICES = THREADS / 32;  // 32-pixel slices of a tile
 __device__ __forceinline__ int coef_col(int k) { return k < 9 ? k : k + 3; }
 
 __global__ void __launch_bounds__(THREADS)
-raster_bwd_kernel(const float* __restrict__ rows, const float* __restrict__ g_sumlog,
-                  int F1, int H, int W, float sigmainv, float* __restrict__ G) {
+raster_bwd_kernel(const float* __restrict__ rows, const float4* __restrict__ cull,
+                  const float* __restrict__ g_sumlog, int F1, int H, int W, float sigmainv,
+                  float* __restrict__ G) {
   __shared__ float s_g[THREADS];
   __shared__ float s_px[THREADS];
   __shared__ float s_py[THREADS];
@@ -74,12 +76,13 @@ raster_bwd_kernel(const float* __restrict__ rows, const float* __restrict__ g_su
 
   const TileBounds tile = tile_bounds(blockIdx.x, blockIdx.y, H, W);
   const float* rb = rows + (size_t)b * F1 * R;
+  const float4* cb = cull + (size_t)b * F1;
   float* Gb = G + (size_t)b * (F1 - 1) * NCOEF;  // the sentinel row has no output
   const float two_sigma = 2.f * sigmainv;
 
   for (int base = 0; base < F1; base += CHUNK) {
     const int n = min(CHUNK, F1 - base);
-    const bool live = tid < n && face_live(rb + (size_t)(base + tid) * R, tile);
+    const bool live = tid < n && face_live(cb[base + tid], tile);
     const int total = compact_live(live, s_list, s_warp);
     for (int i = tid; i < total * NCOEF; i += THREADS) {
       const int k = i % NCOEF;
@@ -155,10 +158,11 @@ raster_bwd_kernel(const float* __restrict__ rows, const float* __restrict__ g_su
 
 }  // namespace
 
-extern "C" int raster_bwd(const float* rows, const float* g_sumlog, int B, int F1,
-                          int H, int W, float sigmainv, float* G, void* stream) {
+extern "C" int raster_bwd(const float* rows, const float* cull, const float* g_sumlog,
+                          int B, int F1, int H, int W, float sigmainv, float* G,
+                          void* stream) {
   const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
   raster_bwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      rows, g_sumlog, F1, H, W, sigmainv, G);
+      rows, reinterpret_cast<const float4*>(cull), g_sumlog, F1, H, W, sigmainv, G);
   return (int)cudaGetLastError();
 }

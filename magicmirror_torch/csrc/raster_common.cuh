@@ -50,10 +50,14 @@ __device__ __forceinline__ TileBounds tile_bounds(int tile_x, int tile_y, int H,
 }
 
 // A face is kept for a tile iff it faces the camera and its bbox, widened by
-// the margin, meets the tile.  `r` points at the face's row.
-__device__ __forceinline__ bool face_live(const float* r, const TileBounds& t) {
-  return r[NZR] > 0.f && r[BXMAX] >= t.x_lo && r[BXMIN] <= t.x_hi &&
-         r[BYMAX] >= t.y_lo && r[BYMIN] <= t.y_hi;
+// the margin, meets the tile.  The test reads the cull table, one float4 a
+// face (xmin, xmax, ymin, ymax; a face that faces away holds an empty box,
+// magicmirror_torch/ops/face_rows.py::face_cull), not the 26-float row: a
+// tile tests every face of the mesh and keeps a few percent, and on a dense
+// template (13,776 faces, 54 passes a tile) reading whole rows for that test
+// was most of the forward kernel's time.
+__device__ __forceinline__ bool face_live(const float4 box, const TileBounds& t) {
+  return box.y >= t.x_lo && box.x <= t.x_hi && box.w >= t.y_lo && box.z <= t.y_hi;
 }
 
 // Compact the threads whose `live` is set into s_list, in thread order, and

@@ -1,9 +1,12 @@
-// texture_bwd.cu -- backward of the masked bilinear UV texture sampling for
-// Hopper (sm_90a).
+// texture_bwd.cu -- backward of the bilinear UV texture sampling for Hopper
+// (sm_90a), masked or unmasked.
 //
 // Replaces: magicmirror/ops/pallas/texture_cells.py::_tex_bwd_kernel (the
 // streamed VJP of texture_render) together with the uv -> texel chain rule
-// that the JAX package takes through _prep_cells / _uv_to_texels.
+// that the JAX package takes through _prep_cells / _uv_to_texels.  With a
+// null mask pointer (every pixel sampled) it is the backward of the unmasked
+// sampler texture_tpu.py::_kernel, which the JAX package leaves to autodiff
+// of its gather path (ops/sampling.py:283-288).
 //
 // What it computes, per pixel with cotangent g (3 channels): nothing where
 // mask <= 0.5 (d_uv = 0); elsewhere, with the forward kernel's arithmetic
@@ -49,7 +52,7 @@ texture_bwd_kernel(const float* __restrict__ g, const float* __restrict__ uv,
   const size_t n = (size_t)B * H * W;
   const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= n) return;
-  if (!(mask[p] > 0.5f)) {
+  if (mask != nullptr && !(mask[p] > 0.5f)) {
     d_uv[2 * p + 0] = 0.f;
     d_uv[2 * p + 1] = 0.f;
     return;
@@ -85,6 +88,10 @@ texture_bwd_kernel(const float* __restrict__ g, const float* __restrict__ uv,
     const float t11 = (in_y1 && in_x1) ? tex[o11 + c] : 0.f;
     dx += gc * ((t01 - t00) * (1.f - wy) + (t11 - t10) * wy);
     dy += gc * ((t10 - t00) * (1.f - wx) + (t11 - t01) * wx);
+    // a zero cotangent adds nothing: in the unmasked mode every background
+    // pixel carries uv = (0, 0) and g = 0 (the render multiplies the sample by
+    // the coverage), and their adds would all queue on one texel
+    if (gc == 0.f) continue;
     if (in_y0 && in_x0) atomicAdd(&d_tex[o00 + c], w00 * gc);
     if (in_y0 && in_x1) atomicAdd(&d_tex[o01 + c], w01 * gc);
     if (in_y1 && in_x0) atomicAdd(&d_tex[o10 + c], w10 * gc);
@@ -96,6 +103,7 @@ texture_bwd_kernel(const float* __restrict__ g, const float* __restrict__ uv,
 
 }  // namespace
 
+// mask may be null: the unmasked mode.
 extern "C" int texture_bwd(const float* g, const float* uv, const float* mask,
                            const float* tex, int B, int H, int W, int Ht, int Wt,
                            float* d_tex, float* d_uv, void* stream) {

@@ -1,9 +1,11 @@
-// texture_fwd.cu -- masked bilinear UV texture sampling for Hopper (sm_90a).
+// texture_fwd.cu -- bilinear UV texture sampling for Hopper (sm_90a), masked
+// or unmasked.
 //
-// Replaces: magicmirror/ops/pallas/texture_cells.py::_tex_kernel (reached
-// through texture_render).  With the mask test dropped it is also the
-// function of magicmirror/ops/pallas/texture_tpu.py::_kernel (unmasked dense
-// bilinear), which a later unmasked mode of this kernel will cover.
+// Replaces, masked: magicmirror/ops/pallas/texture_cells.py::_tex_kernel
+// (reached through texture_render).  Replaces, unmasked (a null mask
+// pointer: every pixel is sampled): magicmirror/ops/pallas/texture_tpu.py::
+// _kernel (the dense tent-matmul bilinear sampler, reached through
+// texture_bilinear_pallas from ops/sampling.texture_mapping).
 //
 // What it computes, per output pixel: 0 where mask <= 0.5; elsewhere
 // texture_mapping(uv) in exactly the arithmetic of the JAX golden path
@@ -40,7 +42,7 @@ texture_fwd_kernel(const float* __restrict__ uv, const float* __restrict__ mask,
   const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= n) return;
   float* o = out + 3 * p;
-  if (!(mask[p] > 0.5f)) {
+  if (mask != nullptr && !(mask[p] > 0.5f)) {
     o[0] = 0.f;
     o[1] = 0.f;
     o[2] = 0.f;
@@ -70,6 +72,7 @@ texture_fwd_kernel(const float* __restrict__ uv, const float* __restrict__ mask,
 
 }  // namespace
 
+// mask may be null: the unmasked mode.
 extern "C" int texture_fwd(const float* uv, const float* mask, const float* tex,
                            int B, int H, int W, int Ht, int Wt, float* out,
                            void* stream) {

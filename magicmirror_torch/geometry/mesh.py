@@ -27,8 +27,12 @@ def flip_index(vertices: np.ndarray) -> np.ndarray:
     v = np.asarray(vertices, dtype=np.float32)
     v_flip = v.copy()
     v_flip[:, 2] *= -1
-    d2 = ((v[:, None, :] - v_flip[None, :, :]) ** 2).sum(-1)
-    return np.argmin(d2, axis=1).astype(np.int64)
+    out = np.empty(v.shape[0], dtype=np.int64)
+    rows = 1024  # a (rows, V, 3) block at a time: 85 MB at V = 6,890
+    for base in range(0, v.shape[0], rows):
+        d2 = ((v[base:base + rows, None, :] - v_flip[None, :, :]) ** 2).sum(-1)
+        out[base:base + rows] = np.argmin(d2, axis=1)
+    return out
 
 
 def unique_edges(faces: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

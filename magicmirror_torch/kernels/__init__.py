@@ -1,30 +1,44 @@
 """Hand-written CUDA kernels for Hopper (sources in ``../csrc``).
 
-Each kernel has a wrapper beside its plain PyTorch version:
+Four sources, each kernel with a wrapper beside its plain PyTorch version.
+``LAUNCHES`` counts the launches under one name per TPU kernel (or family
+of TPU kernels) of ``magicmirror/ops/pallas`` that the launch stands for:
 
-  * ``raster_fwd`` (``csrc/raster_fwd.cu``) behind
-    ``ops.rasterize.rasterize_fused``; it replaces the TPU kernel
-    ``magicmirror/ops/pallas/rasterize_v4.py::_fwd_stream_kernel``; its
-    plain mode (idx and sumlog only) behind ``ops.rasterize.rasterize_plain``
-    replaces ``rasterize_v4.py::_fwd_kernel`` and counts as ``raster_fwd``;
-  * ``texture_fwd`` (``csrc/texture_fwd.cu``) behind
-    ``ops.sampling.texture_render``; it replaces
-    ``magicmirror/ops/pallas/texture_cells.py::_tex_kernel``;
-  * ``raster_bwd`` (``csrc/raster_bwd.cu``) behind the backward of
-    ``ops.rasterize.RasterizeFused`` and ``RasterizePlain``; it replaces
-    ``rasterize_v4.py::_bwd_stream_kernel`` and ``_bwd_kernel``;
-  * ``texture_bwd`` (``csrc/texture_bwd.cu``) behind the backward of
-    ``ops.sampling.TextureRender``; it replaces
-    ``texture_cells.py::_tex_bwd_kernel``.
+  * ``csrc/raster_fwd.cu``, fused mode, behind ``ops.rasterize.rasterize_fused``:
+    ``raster_fwd`` ('line' soft mode; ``rasterize_v4.py::_fwd_stream_kernel``),
+    ``raster_fwd_dense`` (the same launch on a template of at least 2,048
+    faces; ``rasterize_v6.py::_fwd6_kernel``), ``raster_exact_fused`` ('exact'
+    soft mode; ``rasterize_tpu.py::_image_kernel_fused``);
+  * the same source, plain mode (idx and sumlog only), behind
+    ``ops.rasterize.rasterize_plain`` and ``dibr_rasterization``: counted as
+    ``raster_fwd`` / ``raster_fwd_dense`` in 'line' mode
+    (``rasterize_v4.py::_fwd_kernel``), ``raster_exact`` in 'exact' mode
+    (``rasterize_tpu.py::_kernel``, ``_banded_kernel``, ``_image_kernel``:
+    three schedules of one function);
+  * ``csrc/raster_bwd.cu`` behind the backward of ``RasterizeFused`` and
+    ``RasterizePlain`` in 'line' mode: ``raster_bwd``
+    (``rasterize_v4.py::_bwd_stream_kernel``, ``_bwd_kernel``),
+    ``raster_bwd_dense`` (``rasterize_v6.py::_bwd6_kernel``).  The 'exact'
+    mode has no backward kernel, here as in the JAX package;
+  * ``csrc/texture_fwd.cu`` and ``csrc/texture_bwd.cu`` behind
+    ``ops.sampling.texture_render`` (masked: ``texture_fwd``, ``texture_bwd``;
+    ``texture_cells.py::_tex_kernel``, ``_tex_bwd_kernel``) and behind
+    ``ops.sampling.texture_mapping`` on CUDA tensors (unmasked:
+    ``texture_unmasked_fwd``, ``texture_unmasked_bwd``;
+    ``texture_tpu.py::_kernel``, whose backward the JAX package leaves to
+    autodiff).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches, so a run
-can show that its main path went through the kernels.  Nothing here builds or
-loads at import; see ``build.py``.
+launches the kernel or raises.  Each launch adds one to exactly one counter,
+so a run can show that its main path went through the kernels.  Nothing here
+builds or loads at import; see ``build.py``.
 """
 from __future__ import annotations
 
-LAUNCHES = {"raster_fwd": 0, "texture_fwd": 0, "raster_bwd": 0, "texture_bwd": 0}
+LAUNCHES = dict.fromkeys(
+    ("raster_fwd", "texture_fwd", "raster_bwd", "texture_bwd",
+     "raster_fwd_dense", "raster_bwd_dense", "raster_exact", "raster_exact_fused",
+     "texture_unmasked_fwd", "texture_unmasked_bwd"), 0)
 
 
 def reset_launches() -> None:

@@ -32,15 +32,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # rows, B, F, H, W, sigmainv, idx, soft, uv, normal, hard, stream
-    "raster_fwd": (_P, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
-    # rows, B, F, H, W, sigmainv, idx, sumlog, stream
-    "raster_fwd_plain": (_P, _I, _I, _I, _I, _F, _P, _P, _P),
-    # uv, mask, tex, B, H, W, Ht, Wt, out, stream
+    # rows, cull, verts (null in 'line' mode), exact, B, F + 1, H, W, sigmainv,
+    # idx, soft, uv, normal, hard, stream
+    "raster_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    # rows, cull, verts, exact, B, F + 1, H, W, sigmainv, idx, sumlog, stream
+    "raster_fwd_plain": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P),
+    # uv, mask (null = unmasked), tex, B, H, W, Ht, Wt, out, stream
     "texture_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
-    # rows, g_sumlog, B, F + 1, H, W, sigmainv, G, stream
-    "raster_bwd": (_P, _P, _I, _I, _I, _I, _F, _P, _P),
-    # g, uv, mask, tex, B, H, W, Ht, Wt, d_tex, d_uv, stream
+    # rows, cull, g_sumlog, B, F + 1, H, W, sigmainv, G, stream
+    "raster_bwd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
+    # g, uv, mask (null = unmasked), tex, B, H, W, Ht, Wt, d_tex, d_uv, stream
     "texture_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 _LIB = None

@@ -1,9 +1,16 @@
 """Bidirectional chamfer distance, the port of
 ``magicmirror/losses/chamfer.py``: brute force over a dense (B, N, M) matrix
-of squared distances."""
+of squared distances, walked image by image where the whole matrix would be
+large (a dense body template: (32, 6890, 6890) f32 is 6.1 GB, held several
+times over by autograd)."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+# elements of the (B, N, M) matrix beyond which the batch is walked image by
+# image, each image's matrix rebuilt in the backward pass (512 MB of f32)
+_DENSE_ELEMS = 1 << 27
 
 
 def pairwise_sqdist(x, y):
@@ -16,10 +23,18 @@ def pairwise_sqdist(x, y):
     return torch.maximum(d, d.new_zeros(()))  # a tie at 0 splits the gradient, as in JAX
 
 
+def _chamfer_per_image(x, y):
+    """(B, N, 3), (B, M, 3) -> (B,): both directions' mean nearest distance."""
+    d = pairwise_sqdist(x, y)
+    return d.amin(dim=2).mean(dim=1) + d.amin(dim=1).mean(dim=1)
+
+
 def chamfer_distance(x, y):
     """Mean bidirectional chamfer (point and batch reduction 'mean');
-    returns (loss, None)."""
-    d = pairwise_sqdist(x, y)
-    cham_x = d.amin(dim=2).mean(dim=1)
-    cham_y = d.amin(dim=1).mean(dim=1)
-    return (cham_x + cham_y).mean(), None
+    returns (loss, None).  The same arithmetic per image whether the batch is
+    taken at once or, beyond ``_DENSE_ELEMS``, one image at a time."""
+    if x.shape[0] * x.shape[1] * y.shape[1] <= _DENSE_ELEMS:
+        return _chamfer_per_image(x, y).mean(), None
+    per_image = [checkpoint(_chamfer_per_image, x[i:i + 1], y[i:i + 1], use_reentrant=False)
+                 for i in range(x.shape[0])]
+    return torch.cat(per_image).mean(), None

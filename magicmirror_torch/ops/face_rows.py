@@ -6,6 +6,11 @@ quantity the forward needs is an affine function of the pixel centre, so a
 face is 26 f32: three signed edge-line distances, the z plane, the bbox, the
 face id, the u and v planes and the face normal.  Plain torch, as XLA did it.
 ``coeffs13`` is the differentiable half that the backward pass chains through.
+``face_cull`` is the table the kernels' tiles cull by: the bbox alone, 16
+bytes a face.  The 'exact' soft mode measures the distance to the edge
+segments, which are not affine in the pixel: ``face_verts`` is the second
+table it reads, the six vertex coordinates of each face (rows _AX.._CY of
+``_pack_faces``, ``magicmirror/ops/pallas/rasterize_tpu.py:34-67``).
 """
 from __future__ import annotations
 
@@ -16,6 +21,11 @@ import torch
  ZX, ZY, ZC, BXMIN, BXMAX, BYMIN, BYMAX, FID) = range(17)
 (UX, UY, UC, VX, VY, VC, NXR, NYR, NZR) = range(17, 26)
 R_FUSED = 26
+R_VERTS = 6
+R_CULL = 4
+# the JAX renderer hands templates of at least this many faces to its dense
+# kernels (rasterize_v6.DENSE_THRESHOLD); here only the launch counters differ
+DENSE_THRESHOLD = 2048
 
 DEN_EPS = 1e-10
 SOFT_MARGIN = 0.035   # p < 2e-4 at sigmainv = 7000 beyond this distance
@@ -120,3 +130,22 @@ def face_rows(fvi, fz, fnz, face_uvs, face_normals):
     dead[..., ZC] = DEAD_Z
     dead[..., FID] = -1.0
     return torch.cat([packed, dead], dim=1)
+
+
+def face_verts(fvi):
+    """(B, F, 3, 2) -> (B, F + 1, 6) f32: ax, ay, bx, by, cx, cy per face, the
+    table of the 'exact' soft mode beside :func:`face_rows`; row F is the
+    sentinel's (never read past the culling: its row is dead)."""
+    B, F = fvi.shape[0], fvi.shape[1]
+    return torch.cat([fvi.reshape(B, F, R_VERTS),
+                      fvi.new_zeros((B, 1, R_VERTS))], dim=1)
+
+
+def face_cull(rows):
+    """(B, F + 1, 26) face rows -> (B, F + 1, 4) f32: xmin, xmax, ymin, ymax
+    of each front face; a face that faces away and the sentinel get BIG_D in
+    all four, a box that meets no tile (its xmin lies right of every tile).
+    A tile of the rasterizer kernels tests every face of the mesh against its
+    bounds; this table is what it reads.  Two launches, no host constant."""
+    box = torch.where(rows[..., NZR:NZR + 1] > 0.0, rows[..., BXMIN:BYMAX + 1], BIG_D)
+    return box.contiguous()  # already so: no copy

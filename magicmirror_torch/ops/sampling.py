@@ -1,11 +1,13 @@
 """Grid sampling and UV texture mapping, NHWC at the public interface.
 
 The port of ``magicmirror/ops/sampling.py`` (``grid_sample`` and the eager
-``texture_mapping``).  ``texture_render`` (``TextureRender``) is the
-differentiable wrapper of the CUDA masked texture kernels
-(``csrc/texture_fwd.cu``, ``csrc/texture_bwd.cu``); their plain versions are
-``texture_render_plain`` = ``texture_mapping(uv) * mask`` and
-``texture_backward_plain``, its autograd.
+``texture_mapping``).  ``TextureRender`` is the differentiable wrapper of the
+CUDA texture kernels (``csrc/texture_fwd.cu``, ``csrc/texture_bwd.cu``) in
+both their modes: masked behind ``texture_render``, unmasked (no mask:
+every pixel sampled) behind ``texture_mapping``.  Their plain versions are
+``texture_mapping_plain``, ``texture_render_plain`` =
+``texture_mapping_plain(uv) * mask`` and ``texture_backward_plain``, the
+autograd of either.
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ def grid_sample(image, grid, mode: str = "bilinear", padding_mode: str = "zeros"
     return out.permute(0, 2, 3, 1)
 
 
-def texture_mapping(texture_coordinates, texture_maps):
+def texture_mapping_plain(texture_coordinates, texture_maps):
     """Bilinear UV sampling with kaolin ``texture_mapping`` semantics: uv
     clipped to [0, 1], v = 0 at the bottom of the texture, zeros padding.
+    Plain torch on any device: the plain version of the unmasked kernel mode.
 
     texture_coordinates (B, H, W, 2); texture_maps (B, Ht, Wt, C) -> (B, H, W, C).
     """
@@ -65,72 +68,83 @@ def texture_mapping(texture_coordinates, texture_maps):
 
 
 def texture_render_plain(texcoord, textures, texmask):
-    """Plain version of the texture kernel: ``texture_mapping(uv) * mask``.
+    """Plain version of the masked kernel mode: ``texture_mapping(uv) * mask``.
 
     texcoord (B, H, W, 2); textures (B, Ht, Wt, 3); texmask (B, H, W) hard
     coverage in {0, 1}.  Returns (B, H, W, 3).
     """
-    return texture_mapping(texcoord, textures) * texmask[..., None]
+    return texture_mapping_plain(texcoord, textures) * texmask[..., None]
 
 
-def texture_fwd(texcoord, textures, texmask):
-    """Launch ``csrc/texture_fwd.cu``: masked bilinear UV sampling, exactly 0
-    where texmask <= 0.5.  fp32, contiguous NHWC inputs."""
-    B, H, W = texmask.shape
+def _check_texture_args(texcoord, textures, texmask):
+    """Shapes and dtypes of the texture kernels' inputs -> (B, H, W, Ht, Wt,
+    the mask's pointer or None for the unmasked mode)."""
+    B, H, W = texcoord.shape[:3]
     Ht, Wt = textures.shape[1], textures.shape[2]
     build.check(texcoord, "texcoord", torch.float32, (B, H, W, 2))
-    build.check(texmask, "texmask", torch.float32, (B, H, W))
     build.check(textures, "textures", torch.float32, (B, Ht, Wt, 3))
-    out = torch.empty((B, H, W, 3), dtype=torch.float32, device=texmask.device)
-    build.launch("texture_fwd", texcoord.data_ptr(), texmask.data_ptr(),
-                 textures.data_ptr(), B, H, W, Ht, Wt, out.data_ptr())
-    kernels.LAUNCHES["texture_fwd"] += 1
+    if texmask is None:
+        return B, H, W, Ht, Wt, None
+    build.check(texmask, "texmask", torch.float32, (B, H, W))
+    return B, H, W, Ht, Wt, texmask.data_ptr()
+
+
+def texture_fwd(texcoord, textures, texmask=None):
+    """Launch ``csrc/texture_fwd.cu``: bilinear UV sampling, exactly 0 where
+    texmask <= 0.5; with no mask every pixel is sampled (the unmasked mode).
+    fp32, contiguous NHWC inputs."""
+    B, H, W, Ht, Wt, mask_ptr = _check_texture_args(texcoord, textures, texmask)
+    out = torch.empty((B, H, W, 3), dtype=torch.float32, device=texcoord.device)
+    build.launch("texture_fwd", texcoord.data_ptr(), mask_ptr, textures.data_ptr(),
+                 B, H, W, Ht, Wt, out.data_ptr())
+    kernels.LAUNCHES["texture_fwd" if texmask is not None else "texture_unmasked_fwd"] += 1
     return out
 
 
-def texture_backward_plain(g, texcoord, textures, texmask):
+def texture_backward_plain(g, texcoord, textures, texmask=None):
     """Plain version of the backward kernel: autograd of
-    :func:`texture_render_plain`.  g (B, H, W, 3) -> (d_texcoord (B, H, W, 2),
-    d_textures (B, Ht, Wt, 3)); the mask gets no gradient."""
+    :func:`texture_render_plain` or, with no mask, of
+    :func:`texture_mapping_plain`.  g (B, H, W, 3) -> (d_texcoord
+    (B, H, W, 2), d_textures (B, Ht, Wt, 3)); the mask gets no gradient."""
     with torch.enable_grad():
         uv = texcoord.detach().requires_grad_(True)
         tex = textures.detach().requires_grad_(True)
-        out = texture_render_plain(uv, tex, texmask.detach())
+        out = (texture_mapping_plain(uv, tex) if texmask is None
+               else texture_render_plain(uv, tex, texmask.detach()))
         d_uv, d_tex = torch.autograd.grad(out, (uv, tex), g)
     return d_uv, d_tex
 
 
-def texture_bwd(g, texcoord, textures, texmask):
+def texture_bwd(g, texcoord, textures, texmask=None):
     """Launch ``csrc/texture_bwd.cu``; same outputs as
     :func:`texture_backward_plain`.  fp32, contiguous NHWC inputs."""
-    B, H, W = texmask.shape
-    Ht, Wt = textures.shape[1], textures.shape[2]
+    B, H, W, Ht, Wt, mask_ptr = _check_texture_args(texcoord, textures, texmask)
     build.check(g, "g", torch.float32, (B, H, W, 3))
-    build.check(texcoord, "texcoord", torch.float32, (B, H, W, 2))
-    build.check(texmask, "texmask", torch.float32, (B, H, W))
-    build.check(textures, "textures", torch.float32, (B, Ht, Wt, 3))
     d_tex = torch.zeros_like(textures)
     d_uv = torch.empty_like(texcoord)
-    build.launch("texture_bwd", g.data_ptr(), texcoord.data_ptr(), texmask.data_ptr(),
+    build.launch("texture_bwd", g.data_ptr(), texcoord.data_ptr(), mask_ptr,
                  textures.data_ptr(), B, H, W, Ht, Wt, d_tex.data_ptr(), d_uv.data_ptr())
-    kernels.LAUNCHES["texture_bwd"] += 1
+    kernels.LAUNCHES["texture_bwd" if texmask is not None else "texture_unmasked_bwd"] += 1
     return d_uv, d_tex
 
 
 class TextureRender(torch.autograd.Function):
-    """Differentiable masked texture sampling: the plain paths for CPU
-    tensors, the CUDA kernels for CUDA tensors (or an error; there is no
-    fallback).  Gradients go to texcoord and textures; the mask gets none
-    (every caller's mask is the rasterizer's hard coverage, whose cotangent
-    the rasterizer drops)."""
+    """Differentiable texture sampling, masked or (``texmask`` None)
+    unmasked: the plain paths for CPU tensors, the CUDA kernels for CUDA
+    tensors (or an error; there is no fallback).  Gradients go to texcoord
+    and textures; the mask gets none (every caller's mask is the rasterizer's
+    hard coverage, whose cotangent the rasterizer drops)."""
 
     @staticmethod
     def forward(ctx, texcoord, textures, texmask):
-        texcoord, textures, texmask = (texcoord.contiguous(), textures.contiguous(),
-                                       texmask.contiguous())
+        texcoord, textures = texcoord.contiguous(), textures.contiguous()
+        if texmask is not None:
+            texmask = texmask.contiguous()
         ctx.save_for_backward(texcoord, textures, texmask)
         if texcoord.is_cuda:
             return texture_fwd(texcoord, textures, texmask)
+        if texmask is None:
+            return texture_mapping_plain(texcoord, textures)
         return texture_render_plain(texcoord, textures, texmask)
 
     @staticmethod
@@ -147,3 +161,13 @@ def texture_render(texcoord, textures, texmask):
     """Masked texture sampling with gradients to texcoord and textures: see
     :class:`TextureRender`.  Same contract as :func:`texture_render_plain`."""
     return TextureRender.apply(texcoord, textures, texmask)
+
+
+def texture_mapping(texture_coordinates, texture_maps):
+    """Unmasked texture sampling, the contract of
+    :func:`texture_mapping_plain`: that function for CPU tensors; for CUDA
+    tensors the unmasked mode of the texture kernels, forward and backward
+    (three-channel fp32 textures, or an error)."""
+    if not texture_coordinates.is_cuda:
+        return texture_mapping_plain(texture_coordinates, texture_maps)
+    return TextureRender.apply(texture_coordinates, texture_maps, None)

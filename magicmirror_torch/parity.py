@@ -13,7 +13,27 @@ Rasterizer (``raster_fwd`` vs ``rasterize_fused_plain``):
     two differ where a pixel sits on the edge of a sliver face;
   * hard equal;
   * soft within 3e-4: the kernel culls faces beyond the 0.035 soft margin,
-    the plain path sums over all faces.
+    the plain path sums over all faces;
+  * on the dense template (smpl_uv.obj, 13,776 faces) at the Market shape
+    (128x64) the same bounds hold, and no pixel may change coverage.  At
+    256^2 (``dense_uncut=True``), where a tile spans an eighth of the NDC
+    range and the cull follows the 0.035 margin most closely, the
+    comparison with the plain sum over ALL faces is wider in two places: a
+    pixel may be covered in one and background in the other on at most 2e-6
+    of the pixels (the body's silhouette is made of edges shorter than a
+    pixel there, and a pixel centre within float rounding of such an edge
+    falls inside by the affine edge planes and outside by the barycentrics,
+    or the other way round; seen: 1 of 2,097,152 pixels at b32 with the
+    camera at distance 2), and soft within 2e-3 (seen 1.0e-3 with the
+    camera at 6.5, 1.9e-4 at 2).  That this is the margin truncating a sum
+    of many small terms, and no fault of the kernel, is shown beside it:
+    against the plain sum over the faces the tiles keep
+    (``rasterize_fused_plain(tile_cull=True)``) soft is held to 3e-4 there
+    too.  The margin is the JAX package's own (``_SOFT_MARGIN``), whose
+    kernels truncate the same sum.
+The 'exact' soft mode (segment distances) is held to the same bounds
+against the plain 'exact' path, and the unmasked texture mode to the
+texture bounds with every pixel counted as inside the mask.
 Texture (``texture_fwd`` vs ``texture_render_plain``): 1e-5, and exactly 0
 outside the mask.
 
@@ -43,7 +63,15 @@ on or off near it (15 of 65,536 pixels, alpha 0.10, in one b4/128^2
 render, card vs CPU).  The worst value anywhere is capped too: textures
 and rgb 1e-2, alpha 0.15, above the worst seen card vs CPU (5.6e-3, 7.9e-3,
 0.10).  Float32 on both sides, through a 56M-parameter encoder whose
-convolutions sum in another order.
+convolutions sum in another order.  Between the card and the CPU
+(``check_slice(stats, rgb_flip_pixels=4)``) up to four pixels of an image
+may pass the rgb cap: the two devices place the vertices ~2e-6 apart, so a
+pixel centre within that of a silhouette edge is covered on one device and
+background (white) on the other while alpha is ~1 on both, and rgb is the
+texture times a light coefficient of up to ~3, which carries a texel's
+4e-3 to 1.3e-2 (seen in one b4/128^2 'exact' serve: one such pixel 0.18
+off in ``Xir2``, one 0.013 off in ``Xer270``; chip_smoke.py prints the
+pixels whose winner differs beside each view).
 """
 from __future__ import annotations
 
@@ -51,7 +79,7 @@ import numpy as np
 import torch
 
 RASTER_TOL = {"idx_frac": 1e-4, "normal": 1e-5, "uv": 1e-5, "uv_frac": 1e-4,
-              "uv_max": 1e-3, "soft": 3e-4}
+              "uv_max": 1e-3, "soft": 3e-4, "uncut_coverage_frac": 2e-6, "uncut_soft": 2e-3}
 TEXTURE_TOL = 1e-5
 RASTER_BWD_TOL = 1e-3
 TEXTURE_BWD_TOL = 1e-5
@@ -83,16 +111,19 @@ def raster_stats(kernel_out, plain_out) -> dict:
     }
 
 
-def check_raster(stats: dict) -> None:
+def check_raster(stats: dict, dense_uncut: bool = False) -> None:
+    """``dense_uncut``: the dense template at 256^2 against the sum over all
+    faces (see the module's text)."""
     tol = RASTER_TOL
     n = stats["pixels"]
+    coverage_flips = tol["uncut_coverage_frac"] * n if dense_uncut else 0
     _require(stats["idx_mismatch"] <= tol["idx_frac"] * n, stats)
-    _require(stats["idx_mismatch_uncovered"] == 0, stats)
+    _require(stats["idx_mismatch_uncovered"] <= coverage_flips, stats)
     _require(stats["normal_max"] <= tol["normal"], stats)
     _require(stats["uv_over_tol"] <= tol["uv_frac"] * n, stats)
     _require(stats["uv_max"] <= tol["uv_max"], stats)
-    _require(stats["hard_mismatch"] == 0, stats)
-    _require(stats["soft_max"] <= tol["soft"], stats)
+    _require(stats["hard_mismatch"] <= coverage_flips, stats)
+    _require(stats["soft_max"] <= tol["uncut_soft" if dense_uncut else "soft"], stats)
 
 
 def texture_stats(kernel_out, plain_out, texmask) -> dict:
@@ -163,25 +194,31 @@ def render_stats(ref_renders, renders) -> dict:
     counts are per image, the worst image of any render."""
     stats = {}
     for channel, sl in (("alpha", slice(3, 4)), ("rgb", slice(0, 3))):
-        within, over, worst = [], [], []
+        within, over, worst, over_cap = [], [], [], []
         for a, b in zip(ref_renders, renders):
             d = np.abs(_np(b)[..., sl] - _np(a)[..., sl]).max(-1)  # (B, H, W)
             beyond = (d > SLICE_TOL[channel]).reshape(d.shape[0], -1)
             within.append(float(1.0 - beyond.mean(1).max()))
             over.append(int(beyond.sum(1).max()))
             worst.append(float(d.max()))
+            over_cap.append(int((d > SLICE_TOL[f"{channel}_max"]).reshape(d.shape[0], -1)
+                                .sum(1).max()))
         stats[f"{channel}_within_frac"] = min(within)
         stats[f"{channel}_over_pixels"] = max(over)
         stats[f"{channel}_max"] = max(worst)
+        stats[f"{channel}_over_cap_pixels"] = max(over_cap)
     return stats
 
 
-def check_renders(stats: dict) -> None:
+def check_renders(stats: dict, rgb_flip_pixels: int = 0) -> None:
+    """``rgb_flip_pixels``: the pixels of one image that may pass the cap on
+    the worst rgb value (0 unless the two runs are on different devices)."""
     tol = SLICE_TOL
     for channel in ("alpha", "rgb"):
         _require(stats[f"{channel}_within_frac"] >= tol["frac"], stats)
         _require(stats[f"{channel}_over_pixels"] <= tol["over_pixels"], stats)
-        _require(stats[f"{channel}_max"] <= tol[f"{channel}_max"], stats)
+    _require(stats["alpha_max"] <= tol["alpha_max"], stats)
+    _require(stats["rgb_over_cap_pixels"] <= rgb_flip_pixels, stats)
 
 
 def check_train_renders(stats: dict) -> None:
@@ -215,7 +252,7 @@ def slice_stats(ref_renders, renders, ref_att, att) -> dict:
     return stats
 
 
-def check_slice(stats: dict) -> None:
+def check_slice(stats: dict, rgb_flip_pixels: int = 0) -> None:
     tol = SLICE_TOL
     for key in SLICE_ATTRS:
         if key == "textures":
@@ -224,4 +261,4 @@ def check_slice(stats: dict) -> None:
             continue
         limit = tol["angle_deg"] if key in ("azimuths", "elevations") else tol["attr"]
         _require(stats[f"{key}_max"] <= limit, (key, stats))
-    check_renders(stats)
+    check_renders(stats, rgb_flip_pixels)

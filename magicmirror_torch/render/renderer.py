@@ -1,9 +1,18 @@
 """DiffRender, the port of ``magicmirror/render/renderer.py``: the
 differentiable render and the loss suite (delegated to ``..losses``).
 
-camera -> rasterize (the ``raster_fwd`` / ``raster_bwd`` kernels on CUDA) ->
-masked texture (the ``texture_fwd`` / ``texture_bwd`` kernels on CUDA) -> SH
-light -> compose.  Layouts are the
+camera -> rasterize -> texture -> SH light -> compose, in two branches as in
+the JAX renderer.  ``soft_mode='line'`` (the default): the fused rasterizer
+(``raster_fwd`` / ``raster_bwd`` kernels on CUDA, under their dense counters
+for a template of at least 2,048 faces) and the masked texture sampler
+(``texture_fwd`` / ``texture_bwd``).  ``soft_mode='exact'`` (kaolin's
+segment distance): the 'exact' rasterizer and then the unmasked
+``texture_mapping`` times the coverage; the rasterizer is the fused form in
+this mode too, served and trained alike (one kernel with the winner's uv and
+normal; its backward interpolates at the saved winner and differentiates
+the plain phase 1 by face chunks).
+Any ``ratio`` (render height = round(ratio * image_size)) and any template of
+``template/``.  Layouts are the
 JAX package's: images NHWC in [0, 1], textures (B, 2H, W, 3), the attribute
 dict with the reference's keys.  The template (``vertices_init``) is not
 stored per call: callers pass predicted ``vertices`` in the attribute dict.
@@ -21,8 +30,8 @@ from .. import resolve_device
 from ..geometry.obj_io import load_obj
 from ..losses import attributes as att_losses
 from ..losses import mesh_reg, recon
-from ..ops.rasterize import rasterize_fused
-from ..ops.sampling import texture_render
+from ..ops.rasterize import SOFT_MODES, rasterize_fused
+from ..ops.sampling import texture_mapping, texture_render
 from ..ops.shading import spherical_harmonic_lighting
 
 
@@ -33,10 +42,8 @@ class DiffRender:
                  sigmainv: float = 7000.0, soft_mode: str = "line", device="cuda"):
         """Builds on the card unless ``device`` names another device."""
         device = resolve_device(device)
-        if soft_mode != "line":
-            raise NotImplementedError(
-                f"soft_mode={soft_mode!r}: only 'line' is ported (the 'exact' "
-                "mode needs the K8 kernels)")
+        if soft_mode not in SOFT_MODES:
+            raise ValueError(f"soft_mode must be one of {SOFT_MODES}, got {soft_mode!r}")
         self.soft_mode = soft_mode
         self.image_size = int(image_size)
         self.ratio = ratio
@@ -100,9 +107,13 @@ class DiffRender:
         H, W = self.render_height, self.render_width
         _, soft_mask, texcoord, imnormal, hard = rasterize_fused(
             face_vertices_image, face_vertices_camera[..., 2], face_normals[..., 2],
-            self.face_uvs, face_normals, sigmainv=self.sigmainv, height=H, width=W)
+            self.face_uvs, face_normals, sigmainv=self.sigmainv, height=H, width=W,
+            soft_mode=self.soft_mode)
         texmask = hard[..., None]
-        masked_tex = texture_render(texcoord, textures, hard)
+        if self.soft_mode == "exact":
+            masked_tex = texture_mapping(texcoord, textures) * texmask
+        else:
+            masked_tex = texture_render(texcoord, textures, hard)
         coef = spherical_harmonic_lighting(imnormal, attributes["lights"])
         image = masked_tex * coef[..., None] + (1.0 - texmask)
         rgbs = torch.cat([image.clamp(0.0, 1.0), soft_mask[..., None]], dim=-1)

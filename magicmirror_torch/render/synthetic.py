@@ -7,11 +7,12 @@ import torch
 
 
 def bench_attributes(vertices_init: np.ndarray, batch: int, image_size: int,
-                     seed: int = 0) -> dict:
+                     seed: int = 0, height: int | None = None) -> dict:
     """The attribute distribution that ``bench.py`` renders: azimuth
     U(-180, 180), elevation U(0, 30), distance U(2, 4), bias U(-0.2, 0.2),
-    vertex jitter U(-0.05, 0.05), random textures (B, 2S, S, 3), ambient
-    light 3 with U(-0.1, 0.1) bands.  Returns float32 numpy arrays."""
+    vertex jitter U(-0.05, 0.05), random textures (B, 2H, S, 3) with H the
+    render height (S unless ``height`` is given), ambient light 3 with
+    U(-0.1, 0.1) bands.  Returns float32 numpy arrays."""
     rng = np.random.RandomState(seed)
     V = vertices_init.shape[0]
     f32 = np.float32
@@ -22,7 +23,7 @@ def bench_attributes(vertices_init: np.ndarray, batch: int, image_size: int,
         "biases": rng.uniform(-0.2, 0.2, (batch, 2)).astype(f32),
         "vertices": (vertices_init[None]
                      + rng.uniform(-0.05, 0.05, (batch, V, 3))).astype(f32),
-        "textures": rng.rand(batch, 2 * image_size, image_size, 3).astype(f32),
+        "textures": rng.rand(batch, 2 * (height or image_size), image_size, 3).astype(f32),
         "lights": np.concatenate([np.full((batch, 1), 3.0),
                                   rng.uniform(-0.1, 0.1, (batch, 8))], 1).astype(f32),
         "delta_vertices": np.zeros((batch, V, 3), f32),

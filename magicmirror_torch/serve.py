@@ -14,6 +14,10 @@ covers: ``ServeOptions`` defaults are those of
     rec = Reconstructor(netE, dr, opt)
     out = rec(images, generator=torch.Generator("cuda").manual_seed(0))
 
+``preset_options(ServeOptions, "market_smpl")`` and ``"cub_exact"`` are the
+two configurations beside the default: the human-body recipe on the dense
+SMPL template, and the defaults with ``soft_mode="exact"``.
+
 ``update_bn`` and ``Reconstructor`` run the encoder and the renders in
 float32 without TF32, whatever the caller's ``torch.backends`` flags say
 (cuDNN allows TF32 convolutions by default): the port is held to the
@@ -64,6 +68,31 @@ class ServeOptions:
     soft_mode: str = "line"
 
 
+# The flags of the human-body recipe that the port reads
+# (``MARKET_DEFAULTS``, ``magicmirror/cli/train_market.py:10-21``): ratio-2
+# renders (height = 2 x imageSize) of a template squashed to an ellipsoid.
+MARKET_DEFAULTS = dict(ratio=2.0, ellipsoid=2.0, bias_range=0.5, elev_range="-15~15",
+                       dist_range="2~6")
+PRESETS = {
+    # the Market recipe at its published size (``docs/RECIPES.md``: imageSize
+    # 64, renders 128 x 64) on the dense SMPL template (6,890 vertices, 13,776
+    # faces); the recipe's --bg and --hard are not ported and stay off
+    "market_smpl": dict(MARKET_DEFAULTS, imageSize=64,
+                        template_path="./template/smpl_uv.obj"),
+    # the CUB defaults with kaolin's segment-distance silhouette
+    "cub_exact": dict(soft_mode="exact"),
+}
+
+
+def preset_options(cls, name: str, **overrides):
+    """``cls`` (``ServeOptions`` or ``TrainOptions``) at the preset ``name``
+    of ``PRESETS``; a flag the class does not read is left out, and
+    ``overrides`` win."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    values = {k: v for k, v in PRESETS[name].items() if k in names}
+    return cls(**{**values, **overrides})
+
+
 def unported_options(opt) -> list[str]:
     """The settings of ``opt`` that the port's encoder does not cover."""
     unported = []
@@ -75,8 +104,6 @@ def unported_options(opt) -> list[str]:
         unported.append(f"lambda_lc={opt.lambda_lc}")
     if opt.nolpl:
         unported.append("nolpl")
-    if opt.soft_mode != "line":
-        unported.append(f"soft_mode={opt.soft_mode}")
     if opt.norm != "bn":
         unported.append(f"norm={opt.norm}")
     for flag, ported in _BACKBONES.items():

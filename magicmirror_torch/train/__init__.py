@@ -5,7 +5,9 @@ configurations the port covers.
     trainer = build_trainer(opt)                  # on the card
     metrics, Xer, Xir = trainer.step(photos, lr_e=1e-4, lr_d=1e-4, warm_up=1.0)
 
-``TrainOptions`` holds the flags the step reads with the defaults of
+``preset_options(TrainOptions, "market_smpl")`` and ``"cub_exact"`` are the
+configurations beside the default (``serve.PRESETS``).  ``TrainOptions``
+holds the flags the step reads with the defaults of
 ``magicmirror/configs/flags.py``; an option outside the port raises
 ``NotImplementedError``.  ``steps_per_call``, ``donate_state`` and
 ``band_capacity`` answer to limits of the TPU runtime; they are accepted and
@@ -21,13 +23,13 @@ from .. import resolve_device
 from ..models.convert import init_from_seed
 from ..models.discriminators import Discriminator
 from ..render.renderer import DiffRender
-from ..serve import ServeOptions, build_models, unported_options
+from ..serve import PRESETS, ServeOptions, build_models, preset_options, unported_options
 from .optim import lr_schedule, make_optimizer_d, make_optimizer_e
 from .state import TrainState
 from .train_step import METRIC_KEYS, sample_draws, train_step
 
-__all__ = ["METRIC_KEYS", "TrainOptions", "Trainer", "build_trainer", "lr_schedule",
-           "sample_draws", "train_step"]
+__all__ = ["METRIC_KEYS", "PRESETS", "TrainOptions", "Trainer", "build_trainer",
+           "lr_schedule", "preset_options", "sample_draws", "train_step"]
 
 
 @dataclasses.dataclass

@@ -130,7 +130,7 @@ def test_serve_options_defaults_are_the_flag_defaults():
 
 
 @pytest.mark.parametrize("change", [{"bg": True}, {"makeup": 1}, {"lambda_lc": 0.1},
-                                   {"soft_mode": "exact"}, {"pretrains": "res50"},
+                                   {"nolpl": True}, {"pretrains": "res50"},
                                    {"pretraint": "swin"}, {"pretrainc": "res18"}])
 def test_options_outside_the_port_raise(change):
     dr = DiffRender(SPHERE, S, device="cpu")

@@ -45,7 +45,7 @@ def test_train_options_defaults_are_the_flag_defaults():
 @pytest.mark.parametrize("change", [
     {"bg": True}, {"hard": True}, {"inv": 0.1}, {"dis1": 0.1}, {"dis2": 0.1},
     {"lambda_lc": 0.1}, {"gan_type": "lsgan"}, {"hmr": 1.0}, {"makeup": 1},
-    {"soft_mode": "exact"}, {"pretrains": "res50"}, {"sn_dis": 1},
+    {"norm": "in"}, {"pretrains": "res50"}, {"sn_dis": 1},
     {"adamw": True, "amsgrad": False}])
 def test_options_outside_the_port_raise(change):
     with pytest.raises(NotImplementedError, match=next(iter(change))):
