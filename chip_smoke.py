@@ -19,7 +19,11 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      cameras (counted under their dense names, nothing dropped, timed, with
      the share of the all-faces scan); the 'exact' soft mode, fused and
      plain, at the same three shapes, with its autograd backward at b4;
-     the unmasked texture mode, forward and backward;
+     the unmasked texture mode, forward and backward; and K9c, the probe of
+     the masked texture kernel's body by level (1, 4, 5), on the first 32
+     images of dump_uv's camera sweep at 256^2 and 128^2: zeros below level
+     5, level 5 the texture kernel's output bit for bit, timed by bursts of
+     100 launches (magicmirror_torch/benchmarks/texture_parts.py);
   4. the serving slice of each configuration: the full-width encoder (random
      weights from a seed, BatchNorm statistics re-estimated on the smoke
      batch) serving b4 synthetic RGBA photos through Reconstructor, plus a
@@ -29,7 +33,7 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      that face the camera on one device only and the alpha differences;
   5. the training slice: for the defaults one D-then-G step at b4 on the card
      against the same step (weights, photos, draws; dropout off) on the CPU;
-     then for each configuration 12 to 24 steps at b32 with dropout on: finite
+     then for each configuration 8 to 24 steps at b32 with dropout on: finite
      metrics, no skipped side, nothing dropped, a falling reconstruction
      loss, and the configuration's kernels launched twice a step each;
   6. timing with CUDA events (median after warm-up): every kernel against
@@ -40,15 +44,25 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
   7. with ``--profile STEPS`` only: torch.profiler over STEPS serving steps,
      STEPS train steps and STEPS critic updates alone at b32 / 128^2 of the
      default configuration: the device's busy share of the step, the kernel
-     launches per step, and device ms by kernel group.
+     launches per step, and device ms by kernel group;
+  8. the trainer (train.trainer.trainer) on the default configuration at
+     b32 / 128^2 over 4 train and 2 test batches of synthetic photos, in two
+     calls into build/trainer_smoke: epochs 0-1 (artifacts, eval with FID,
+     checkpoints, the EM template update and the BatchNorm refresh after it,
+     an SWA update), then a resume from that checkpoint with SWA from epoch 0
+     (the SWA BatchNorm refresh, the eval with and without SWA); the
+     artifacts, result.txt, the checkpoint round trip and the kernel launches
+     each call must make are checked, and its times printed.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and magicmirror_torch
 only.
 """
 import argparse
 import copy
+import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -72,15 +86,19 @@ from magicmirror_torch.ops.rasterize import (dibr_rasterization, pixel_grid,  # 
                                              rasterize_fused, rasterize_fused_plain,
                                              rasterize_phase1, rasterize_plain,
                                              soft_backward_autograd, soft_backward_plain)
-from magicmirror_torch.ops.sampling import (texture_backward_plain,  # noqa: E402
-                                            texture_bwd, texture_fwd, texture_mapping_plain,
-                                            texture_render, texture_render_plain)
+from magicmirror_torch.ops.sampling import (TEXTURE_PARTS_LEVELS,  # noqa: E402
+                                            texture_backward_plain, texture_bwd, texture_fwd,
+                                            texture_mapping_plain, texture_render,
+                                            texture_render_plain)
 from magicmirror_torch.render.renderer import DiffRender  # noqa: E402
 from magicmirror_torch.render.synthetic import (bench_attributes,  # noqa: E402
                                                smooth_random, to_torch)
 from magicmirror_torch.serve import (Reconstructor, ServeOptions, _no_tf32,  # noqa: E402
-                                     build_models, preset_options, update_bn)
+                                     build_models, estimate_bn_stats, preset_options)
+from magicmirror_torch.benchmarks import texture_parts as probe_bench  # noqa: E402
 from magicmirror_torch.train import TrainOptions, build_trainer, sample_draws  # noqa: E402
+from magicmirror_torch.train.checkpoints import CheckpointManager  # noqa: E402
+from magicmirror_torch.train.trainer import trainer as run_trainer  # noqa: E402
 from magicmirror_torch.train.train_step import (METRIC_KEYS, e_outputs,  # noqa: E402
                                                 running_statistics, update_d, update_e)
 
@@ -101,7 +119,7 @@ CONFIGS = {
 }
 # train steps at b32 per configuration (a step of "cub_exact" takes seconds:
 # its silhouette backward is autograd of the plain phase 1)
-TRAIN_STEPS = {"default": 20, "market_smpl": 24, "cub_exact": 12}
+TRAIN_STEPS = {"default": 12, "market_smpl": 24, "cub_exact": 8}
 T0 = time.perf_counter()
 
 
@@ -598,7 +616,7 @@ def build_slice(config):
     netE = build_models(opt, dr, DEV)
     netE.load_state_dict(net_cpu.state_dict())
     photos = synthetic_photos(dr, 4, SEED + 1, opt.elev_range)
-    update_bn(netE, [photos], dr.vertices_init, dr.vertices_laplacian_matrix)
+    estimate_bn_stats(netE, [photos], dr.vertices_init, dr.vertices_laplacian_matrix)
     net_cpu.load_state_dict(netE.state_dict())
     return opt, dr, dr_cpu, photos, Reconstructor(netE, dr, opt), Reconstructor(net_cpu, dr_cpu,
                                                                                opt)
@@ -635,10 +653,11 @@ def serving_slice(config):
     require({k: v for k, v in launches.items() if v} == expect, (launches, expect))
 
     # card vs CPU.  The plain rasterizer walks every face for every pixel: on
-    # the dense template the CPU takes two of the photos and the witness the
-    # first view (half a minute a render there)
-    dense = dr.num_faces >= DENSE_THRESHOLD
-    n_cpu, n_views = (2, 1) if dense else (4, len(VIEWS))
+    # the dense template (half a minute a render there) and in 'exact' mode
+    # (three segment distances a pair) the CPU takes two of the photos and
+    # the witness the first view; the default four photos and two views
+    slow = dr.num_faces >= DENSE_THRESHOLD or opt.soft_mode == "exact"
+    n_cpu, n_views = (2, 1) if slow else (4, 2)
     u = torch.rand(4, generator=torch.Generator(device=DEV).manual_seed(SEED + 2), device=DEV)
     random_az = -(u * opt.azi_scope - opt.azi_scope / 2)[:n_cpu]
     outs_gpu = rec(photos[:n_cpu], random_azimuths=random_az)
@@ -662,7 +681,7 @@ def train_step_gpu_vs_cpu(dr, dr_cpu, photos):
     lpl = dr.vertices_laplacian_matrix
     topt = TrainOptions(template_path=SPHERE, droprate="0,0,0")
     on_card, on_cpu = build_trainer(topt), build_trainer(topt, device="cpu")
-    update_bn(on_card.state.netE, [photos], dr.vertices_init, lpl)
+    estimate_bn_stats(on_card.state.netE, [photos], dr.vertices_init, lpl)
     on_cpu.state.netE.load_state_dict(on_card.state.netE.state_dict())
     draws = sample_draws(topt, photos.shape[0], torch.Generator(device=DEV).manual_seed(SEED + 3),
                          DEV)
@@ -712,7 +731,8 @@ def train_steps(config, dr):
     steps = TRAIN_STEPS[config]
     batches = [synthetic_photos(dr, 32, SEED + 10 + i, trainer.opt.elev_range)
                for i in range(4)]
-    update_bn(trainer.state.netE, batches[:1], dr.vertices_init, dr.vertices_laplacian_matrix)
+    estimate_bn_stats(trainer.state.netE, batches[:1], dr.vertices_init,
+                      dr.vertices_laplacian_matrix)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -818,20 +838,21 @@ def kernel_timing(size, card):
         t["raster_exact_backward_autograd_ms"] = cuda_ms(
             lambda: soft_backward_autograd(fvi, fz, fnz, g_sumlog, 7000.0, size, size), 1, 3)
     P = B * size * size
-    covered = int(hard.sum().item())
+    covered = int((hard > 0.5).sum().item())
     fwd_bytes, pairs = raster_work(rows, size, size)
     bwd_bytes, pairs_bwd = raster_work(rows, size, size, g_sumlog)
-    tex_bytes = textures.numel() * 4
+    sampler_bytes = probe_bench.texture_bytes  # the uv where sampled, the texels touched
     work = {  # name: (flops per unit, bytes read once and written once, units of work)
         "raster_fwd": ("raster_fwd", fwd_bytes, pairs),
         "raster_fwd_plain_mode": ("raster_fwd", fwd_bytes - P * 24, pairs),
         "raster_bwd": ("raster_bwd", bwd_bytes, pairs_bwd),
-        "texture_fwd": ("texture_fwd", P * 24 + tex_bytes, covered),
-        "texture_bwd": ("texture_bwd", P * 32 + 2 * tex_bytes, covered),
+        "texture_fwd": ("texture_fwd", sampler_bytes(uv, hard, textures), covered),
+        "texture_bwd": ("texture_bwd", sampler_bytes(uv, hard, textures, backward=True), covered),
         "raster_exact_fused": ("raster_exact", fwd_bytes + verts.numel() * 4, pairs),
         "raster_exact": ("raster_exact", fwd_bytes - P * 24 + verts.numel() * 4, pairs),
-        "texture_unmasked_fwd": ("texture_fwd", P * 20 + tex_bytes, P),
-        "texture_unmasked_bwd": ("texture_bwd", P * 28 + 2 * tex_bytes, P),
+        "texture_unmasked_fwd": ("texture_fwd", sampler_bytes(uv, None, textures), P),
+        "texture_unmasked_bwd": ("texture_bwd", sampler_bytes(uv, None, textures, backward=True),
+                                 P),
     }
     for name, (flops, nbytes, units) in work.items():
         t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound_ms(flops, nbytes, units)
@@ -877,6 +898,191 @@ def training_timing(trainer, dr, batch, reps=10):
         out["opt_e_step_ms"] = cuda_ms(state.opt_e.step, 2, 10)
         out["opt_d_step_ms"] = cuda_ms(state.opt_d.step, 2, 10)
     return {"step_ms": step_ms, "images_per_s": batch.shape[0] * 1000.0 / step_ms, **out}
+
+
+def texture_parts_phase(size, card, errs):
+    """K9c: the probe of the masked texture kernel's body, on the first 32
+    images of ``uv_sweep`` (dump_uv's camera sweep through K1) at ``size``
+    with the probe's random texture.  The probe's path (one launch a level)
+    runs with the counts at 0; then levels 1 and 4 must be zeros, level 5
+    the texture kernel's output bit for bit and the plain version's within
+    K3's tolerance; then ``time_levels`` (a burst of 100 launches per CUDA
+    event pair, and the device's time alone, with the L2 warm and cold) ->
+    (the probe path's launches, the timing dict)."""
+    B = 32
+    uv, hard = probe_bench.uv_sweep(size=size, device=DEV)
+    uv, hard = uv[:B].contiguous(), hard[:B].contiguous()
+    tex = probe_bench.random_texture(B, size, DEV)
+    kernels.reset_launches()
+    outs = probe_bench.probe(uv, hard, tex)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    require({k: v for k, v in launches.items() if v}
+            == {"texture_parts": len(TEXTURE_PARTS_LEVELS)}, launches)
+    plain = texture_render_plain(uv, tex, hard)
+    stats = {"zeros_below_5": all(bool((outs[lv] == 0).all()) for lv in (1, 4)),
+             "level5_equals_texture_fwd": bool(torch.equal(outs[5], texture_fwd(uv, tex, hard))),
+             "level5_max_abs": float((outs[5] - plain).abs().max()),
+             "covered_pixels": int(hard.sum().item())}
+    emit("parity_texture_parts", shape=f"b{B}/{size}^2", launches=launches, **stats)
+    require(stats["zeros_below_5"] and stats["level5_equals_texture_fwd"], stats)
+    require(stats["level5_max_abs"] <= parity.TEXTURE_TOL, stats)
+    errs["texture_parts"] = max(errs["texture_parts"], stats["level5_max_abs"])
+    lib = probe_bench.grid_sample_masked(uv, hard, tex).permute(0, 2, 3, 1)
+    require(float((lib - outs[5]).abs().max()) <= parity.TEXTURE_TOL, "grid_sample disagrees")
+    t = probe_bench.time_levels(uv, hard, tex)
+    t["level5_plain_ms"] = probe_bench.burst_ms(lambda: texture_render_plain(uv, tex, hard), 20)
+    t["texture_fwd_ms"] = probe_bench.burst_ms(lambda: texture_fwd(uv, tex, hard))
+    per_image = hard.reshape(B, -1).sum(dim=1)
+    emit("timing_texture_parts", shape=f"b{B}/{size}^2", card=card,
+         covered_pixels_per_image_mean=float(per_image.mean()),
+         covered_pixels_per_image_min=int(per_image.min()),
+         texels_touched=probe_bench.texels_touched(uv, hard, tex), **t)
+    return launches, {"texture_parts_ms": t["level5_ms"],
+                      "texture_parts_plain_ms": t["level5_plain_ms"],
+                      "texture_parts_bound_ms": t["level5_bound_ms"],
+                      "texture_parts_bound_by": t["level5_bound_by"],
+                      "texture_parts_library_ms": t["level5_library_ms"]}
+
+
+class PhotoLoader:
+    """Batches of ``{"images", "path"}`` as the trainer reads a loader."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+def photo_loader(dr, n_batches, first_seed, named_from=0, batch=32):
+    """``n_batches`` b32 batches of ``synthetic_photos``, named sNNN.png."""
+    return PhotoLoader([
+        {"images": synthetic_photos(dr, batch, first_seed + i),
+         "path": [f"s{named_from + batch * i + b:03d}.png" for b in range(batch)]}
+        for i in range(n_batches)])
+
+
+def _same_state(a, b):
+    """Whether two state dicts hold equal values, tensor by tensor."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_state(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def trainer_launches(opt, start_epoch, n_train, n_test):
+    """The kernel launches a ``trainer`` call must make on the default
+    configuration: two renders with their backward a step, one render a
+    sweep frame of the artifact epochs, five renders an eval batch."""
+    epochs = range(start_epoch, opt.niter + 1)
+    lo, hi = (int(float(v)) for v in opt.elev_range.split("~"))
+    dlo, dhi = (int(float(v)) for v in opt.dist_range.split("~"))
+    frames = len(range(-int(opt.azi_scope / 2), int(opt.azi_scope / 2), 10)) + len(
+        range(lo, hi, 10)) + len(range(dlo, dhi + 1))
+    steps = len(epochs) * n_train
+    renders = (sum(frames for e in epochs if e % 10 == 0)
+               + sum(5 * n_test * (2 if opt.swa and e >= opt.swa_start else 1)
+                     for e in epochs if e % 20 == 0))
+    return {"raster_fwd": 2 * steps + renders, "texture_fwd": 2 * steps + renders,
+            "raster_bwd": 2 * steps, "texture_bwd": 2 * steps}
+
+
+def trainer_phase(card):
+    """The trainer at the default configuration, full width, b32 at 128^2, in
+    two calls under the JAX package's cadence (EM runs only before
+    swa_start, so one call cannot show both EM and the SWA BatchNorm
+    refresh).  Call 1: epochs 0 and 1 (artifacts, eval, checkpoints, EM and
+    the BatchNorm refresh at epoch 0; one SWA update at epoch 1).  Call 2:
+    resumes from call 1's latest_ckpt (epoch 0) with swa_start 0: one epoch,
+    an SWA update, the SWA BatchNorm refresh, the eval with and without SWA."""
+    outf = os.path.join(ROOT, "build", "trainer_smoke")
+    shutil.rmtree(outf, ignore_errors=True)
+    dr = DiffRender(SPHERE, 128, device=DEV)
+    train = photo_loader(dr, 4, SEED + 30)
+    test = photo_loader(dr, 2, SEED + 40)
+    opt1 = TrainOptions(template_path=SPHERE, niter=1, warm_epoch=1, swa_start=1,
+                        swa_interval=1, em=1.0, em_gap=1, update_bn=True)
+    # the cosine schedule divides by niter (in the JAX package too), so the
+    # one-epoch resume takes "exp", whose rate at epoch 0 is the same lr
+    opt2 = dataclasses.replace(opt1, resume=True, niter=0, swa_start=0, scheduler="exp")
+
+    calls = []
+    for call, opt in ((1, opt1), (2, opt2)):
+        timings = []
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        state = run_trainer(opt, train, test, train, outf, device=DEV, timings=timings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        # both calls start at epoch 0: call 2 resumes call 1's epoch-0 checkpoint
+        expect = trainer_launches(opt, 0, len(train), len(test))
+        lines = open(os.path.join(outf, "result.txt")).read().splitlines()
+        calls.append((call, state.swa_n, timings, launches, expect, seconds, lines))
+        if call == 1:
+            template_moved = float((state.template - dr.vertices_init).abs().max())
+            em_step = state.em_step
+            # a fresh state restored from latest_ckpt holds, tensor by tensor,
+            # what the file holds: call 1's state at epoch 0, before EM
+            path = os.path.join(outf, "ckpts", "latest_ckpt")
+            payload = torch.load(path, map_location="cpu", weights_only=True)
+            fresh = build_trainer(opt1).state
+            CheckpointManager(os.path.dirname(path)).restore("latest_ckpt", fresh)
+            fresh_equal = (payload["epoch"] == 0
+                           and _same_state(fresh.state_dict(), payload["state"]))
+            del fresh, payload
+        del state
+        torch.cuda.empty_cache()
+
+    artifacts = ["current_Xer.png", "current_Xir.png", "current_rotation.gif",
+                 "current_rotation_ele.gif", "current_rotation_dist.gif",
+                 "epoch_000_template.obj", "current_mesh_recon.obj", "result.txt",
+                 "ckpts/latest_ckpt", "ckpts/best_ckpt", "ckpts/best_mesh.obj"]
+    missing = [a for a in artifacts if not os.path.isfile(os.path.join(outf, a))]
+    fid_files = {d: len(os.listdir(os.path.join(outf, "fid", d)))
+                 for d in ("ori", "rec", "inter", "inter90", "ori_mask", "rec_mask")}
+    for call, swa_n, timings, launches, expect, seconds, lines in calls:
+        epochs = [t for t in timings if "epoch" in t]
+        emit("trainer", call=call, card=card, shape="b32/128x128", seconds=seconds,
+             epochs=[t["epoch"] for t in epochs],
+             seconds_per_epoch=[t["train_s"] for t in epochs],
+             train_images_per_s=[t["train_images"] / t["train_s"] for t in epochs],
+             evals=[dict(e, epoch=t["epoch"]) for t in epochs for e in t["eval"]],
+             em_sweep_s=[t.get("em_s") for t in epochs],
+             em_update_bn_s=[t.get("em_update_bn_s") for t in epochs],
+             swa_bn_refresh_s=[t.get("swa_bn_s") for t in epochs],
+             artifacts_s=[t.get("artifacts_s") for t in epochs],
+             checkpoints=[c for t in epochs for c in t["checkpoints"]],
+             restore=[t for t in timings if "restore_s" in t],
+             launches=launches, expected_launches=expect, result_lines=len(lines), swa_n=swa_n)
+        require(launches == expect, (call, launches, expect))
+        require(swa_n == 1, (call, swa_n))
+    (_, _, _, _, _, _, lines1), (_, _, t2, _, _, _, lines2) = calls
+    checks = {"missing_artifacts": missing, "fid_files": fid_files,
+              "result_lines": [len(lines1), len(lines2)],
+              "swa_lines_call2": sum("(SWA)" in ln for ln in lines2),
+              "template_moved_max": template_moved, "em_step": em_step,
+              "restore_into_fresh_state_equal": fresh_equal,
+              "call2_restored": [t for t in t2 if "restore_s" in t],
+              "swa_bn_refresh_in_call2": any("swa_bn_s" in t for t in t2)}
+    emit("trainer_checks", **checks)
+    require(not missing, missing)
+    require(fid_files == {"ori": 64, "rec": 64, "inter": 128, "inter90": 128, "ori_mask": 64,
+                          "rec_mask": 64}, fid_files)
+    require(len(lines1) == 5 and len(lines2) == 15 and checks["swa_lines_call2"] == 5, checks)
+    require(all(k in " ".join(lines1) for k in ("recon ssim", "recon MaskIoU", "recon fid",
+                                                 "rotation fid", "rotate90/270 fid")), lines1)
+    require(template_moved > 0.0 and em_step < 0.1, checks)
+    require(fresh_equal and [t["restored_epoch"] for t in checks["call2_restored"]] == [0],
+            checks)
+    require(checks["swa_bn_refresh_in_call2"], checks)
 
 
 def main(profile_steps=0):
@@ -925,6 +1131,12 @@ def main(profile_steps=0):
              for h, w, d in ((128, 64, (2.0, 2.0)), (128, 64, (6.5, 6.5)),
                              (128, 64, (2.0, 6.0)), (256, 256, (2.0, 2.0)),
                              (256, 256, (6.5, 6.5)))}
+    # K9c: the probe of the texture kernel's body, at the probe's 256^2 and at 128^2
+    probe_launches, probe_times = {}, {}
+    for size in (256, 128):
+        launches, probe_times[size] = texture_parts_phase(size, card, errs)
+        for k, v in launches.items():
+            probe_launches[k] = probe_launches.get(k, 0) + v
     torch.cuda.synchronize()
 
     # 4. the serving slice and 5. the training slice of each configuration
@@ -973,26 +1185,39 @@ def main(profile_steps=0):
              **profile(_no_tf32()(lambda: update_d(trainer.state, outs, trainer.opt, draws,
                                                    3e-4, 1.0)), profile_steps))
 
+    # 8. the trainer around the step: epochs, SWA, EM, eval, FID, checkpoints
+    del trainers, recs
+    torch.cuda.empty_cache()
+    trainer_phase(card)
+
     # the kernels' summary: name -> (source, the TPU kernel it replaces, the
     # configuration whose main path launches it, where its times were taken)
     csrc, pallas = "magicmirror_torch/csrc/", "magicmirror/ops/pallas/"
     t128, market = times[128], dense[(128, 64, (2.0, 6.0))]
     kernel_table = {
-        "raster_fwd": ("raster_fwd.cu", "rasterize_v4.py:988", "default", t128),
-        "texture_fwd": ("texture_fwd.cu", "texture_cells.py:214", "default", t128),
-        "raster_bwd": ("raster_bwd.cu", "rasterize_v4.py:581", "default", t128),
-        "texture_bwd": ("texture_bwd.cu", "texture_cells.py:355", "default", t128),
+        "raster_fwd": ("raster_fwd.cu", pallas + "rasterize_v4.py:988", "default", t128),
+        "texture_fwd": ("texture_fwd.cu", pallas + "texture_cells.py:214", "default", t128),
+        "raster_bwd": ("raster_bwd.cu", pallas + "rasterize_v4.py:581", "default", t128),
+        "texture_bwd": ("texture_bwd.cu", pallas + "texture_cells.py:355", "default", t128),
         # the plain mode of the forward kernel and its backward: on no main path
-        "raster_fwd_plain_mode": ("raster_fwd.cu", "rasterize_v4.py:372", None, t128),
-        "raster_bwd_plain_mode": ("raster_bwd.cu", "rasterize_v4.py:482", None, t128),
-        "raster_fwd_dense": ("raster_fwd.cu", "rasterize_v6.py:142", "market_smpl", market),
-        "raster_bwd_dense": ("raster_bwd.cu", "rasterize_v6.py:288", "market_smpl", market),
+        "raster_fwd_plain_mode": ("raster_fwd.cu", pallas + "rasterize_v4.py:372", None, t128),
+        "raster_bwd_plain_mode": ("raster_bwd.cu", pallas + "rasterize_v4.py:482", None, t128),
+        "raster_fwd_dense": ("raster_fwd.cu", pallas + "rasterize_v6.py:142", "market_smpl",
+                             market),
+        "raster_bwd_dense": ("raster_bwd.cu", pallas + "rasterize_v6.py:288", "market_smpl",
+                             market),
         # phase 1 alone in 'exact' mode (rasterize_plain, dibr_rasterization):
         # on no main path either, the render is the fused instantiation
-        "raster_exact": ("raster_fwd.cu", "rasterize_tpu.py:70,236,355", None, t128),
-        "raster_exact_fused": ("raster_fwd.cu", "rasterize_tpu.py:621", "cub_exact", t128),
-        "texture_unmasked_fwd": ("texture_fwd.cu", "texture_tpu.py:35", "cub_exact", t128),
-        "texture_unmasked_bwd": ("texture_bwd.cu", "texture_tpu.py:35", "cub_exact", t128),
+        "raster_exact": ("raster_fwd.cu", pallas + "rasterize_tpu.py:70,236,355", None, t128),
+        "raster_exact_fused": ("raster_fwd.cu", pallas + "rasterize_tpu.py:621", "cub_exact",
+                               t128),
+        "texture_unmasked_fwd": ("texture_fwd.cu", pallas + "texture_tpu.py:35", "cub_exact",
+                                 t128),
+        "texture_unmasked_bwd": ("texture_bwd.cu", pallas + "texture_tpu.py:35", "cub_exact",
+                                 t128),
+        # K9c: the probe's own path (the benchmark), at its own shape, b32/256^2
+        "texture_parts": ("texture_fwd.cu", "benchmarks/bench_texcells_parts.py:23", None,
+                          probe_times[256]),
     }
     summary = []
     for name, (source, replaces, config, t) in kernel_table.items():
@@ -1001,15 +1226,15 @@ def main(profile_steps=0):
         timed = "raster_bwd" if name == "raster_bwd_plain_mode" else name
         summary.append({
             "name": name, "route": "cuda", "source": csrc + source,
-            "replaces": pallas + replaces, "config": config,
+            "replaces": replaces, "config": config,
             "launches": ((train_launches[config][name] or serve_launches[config][name])
-                         if config else 0),
+                         if config else probe_launches.get(name, 0)),
             "launches_training": train_launches[config][name] if config else 0,
             "launches_serving": serve_launches[config][name] if config else 0,
             "max_abs_err": errs[counted], "ms": t[f"{timed}_ms"],
             "plain_ms": t[f"{timed}_plain_ms"], "bound_ms": t[f"{timed}_bound_ms"],
             "bound_by": t[f"{timed}_bound_by"], "library_ms": t.get(f"{timed}_library_ms")})
-        if config:
+        if config or name == "texture_parts":
             require(summary[-1]["launches"] > 0, summary[-1])
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,6 +23,21 @@
 // its serial row gathers into matmuls, a GPU gathers directly.  One thread
 // per pixel, consecutive threads on consecutive pixels, so the uv, mask and
 // output streams coalesce; no shared memory, no stream of chunks.
+//
+// The body by level (texture_parts): also replaces
+// benchmarks/bench_texcells_parts.py::make_kernel.kern, a probe that times
+// K3's TPU body cut short.  LEVEL is a template parameter: 5 is the kernel
+// above (texture_fwd launches that instantiation); 1 reads the mask and
+// writes zeros; 4 adds the uv read and clip, the tap coordinates and the 12
+// texel gathers with their weights, and still writes zeros.  What a level
+// computes and does not write (level 1's mask, level 4's sum) is stored only
+// where it equals ``never``, a runtime argument the wrapper sets to NaN,
+// which nothing equals: the compiler cannot know that, so it must load and
+// compute the value to make the test (a never-set flag would not do: the
+// loads could move under the flag's branch).  Below 5 the output is zeros,
+// as the TPU probe writes.  The probe's levels 2 and
+// 3 (tent weights and block gathers of the chunk stream) have no
+// counterpart: this kernel has no chunk stream.
 
 #include <cuda_runtime.h>
 
@@ -34,14 +49,22 @@ __device__ __forceinline__ float tap(const float* t, int Ht, int Wt, int y, int 
   return (x >= 0 && x < Wt && y >= 0 && y < Ht) ? t[((size_t)y * Wt + x) * 3 + c] : 0.f;
 }
 
+template <int LEVEL>
 __global__ void __launch_bounds__(THREADS)
 texture_fwd_kernel(const float* __restrict__ uv, const float* __restrict__ mask,
                    const float* __restrict__ tex, int B, int H, int W, int Ht,
-                   int Wt, float* __restrict__ out) {
+                   int Wt, float* __restrict__ out, float never) {
   const size_t n = (size_t)B * H * W;
   const size_t p = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (p >= n) return;
   float* o = out + 3 * p;
+  if (LEVEL < 4) {  // the mask is read; it is stored only where it equals NaN
+    const float m = mask[p];
+    o[0] = m == never ? m : 0.f;
+    o[1] = 0.f;
+    o[2] = 0.f;
+    return;
+  }
   if (mask != nullptr && !(mask[p] > 0.5f)) {
     o[0] = 0.f;
     o[1] = 0.f;
@@ -65,9 +88,14 @@ texture_fwd_kernel(const float* __restrict__ uv, const float* __restrict__ mask,
     const float t01 = tap(t, Ht, Wt, yi, xi + 1, c);
     const float t10 = tap(t, Ht, Wt, yi + 1, xi, c);
     const float t11 = tap(t, Ht, Wt, yi + 1, xi + 1, c);
-    o[c] = t00 * (1.f - wx) * (1.f - wy) + t01 * wx * (1.f - wy) +
-           t10 * (1.f - wx) * wy + t11 * wx * wy;
+    const float sum = t00 * (1.f - wx) * (1.f - wy) + t01 * wx * (1.f - wy) +
+                      t10 * (1.f - wx) * wy + t11 * wx * wy;
+    o[c] = (LEVEL == 5 || sum == never) ? sum : 0.f;
   }
+}
+
+unsigned blocks_for(int B, int H, int W) {
+  return (unsigned)(((size_t)B * H * W + THREADS - 1) / THREADS);
 }
 
 }  // namespace
@@ -76,10 +104,28 @@ texture_fwd_kernel(const float* __restrict__ uv, const float* __restrict__ mask,
 extern "C" int texture_fwd(const float* uv, const float* mask, const float* tex,
                            int B, int H, int W, int Ht, int Wt, float* out,
                            void* stream) {
-  const size_t n = (size_t)B * H * W;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  texture_fwd_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      uv, mask, tex, B, H, W, Ht, Wt, out);
+  texture_fwd_kernel<5><<<blocks_for(B, H, W), THREADS, 0, (cudaStream_t)stream>>>(
+      uv, mask, tex, B, H, W, Ht, Wt, out, 0.f);
+  return (int)cudaGetLastError();
+}
+
+// The masked kernel's body by level (1, 4 or 5); level 5 is texture_fwd's
+// own instantiation.  ``never`` is NaN (see the top of the file).  Any other
+// level is refused with cudaErrorInvalidValue.
+extern "C" int texture_parts(const float* uv, const float* mask, const float* tex,
+                             int B, int H, int W, int Ht, int Wt, int level,
+                             float never, float* out, void* stream) {
+  const unsigned blocks = blocks_for(B, H, W);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (level == 1) {
+    texture_fwd_kernel<1><<<blocks, THREADS, 0, s>>>(uv, mask, tex, B, H, W, Ht, Wt, out, never);
+  } else if (level == 4) {
+    texture_fwd_kernel<4><<<blocks, THREADS, 0, s>>>(uv, mask, tex, B, H, W, Ht, Wt, out, never);
+  } else if (level == 5) {
+    texture_fwd_kernel<5><<<blocks, THREADS, 0, s>>>(uv, mask, tex, B, H, W, Ht, Wt, out, never);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-"""Wavefront OBJ reader (numpy), the port of ``magicmirror/geometry/obj_io.py``.
+"""Wavefront OBJ reader and writer (numpy), the port of
+``magicmirror/geometry/obj_io.py``.
 
 It returns the same arrays, with the same dtypes, as the JAX package's
 ``load_obj``.  Pure numpy: mesh I/O is a one-time setup cost.
@@ -64,3 +65,19 @@ def load_obj(path: str, with_materials: bool = False) -> Mesh:
         face_uvs_idx=np.asarray(face_uvs_idx, dtype=np.int32),
         materials=materials if with_materials else None,
     )
+
+
+def save_mesh(obj_mesh_name: str, v, faces, vt=None) -> None:
+    """Write an OBJ file as the JAX package's ``save_mesh`` writes it: ``%f``
+    vertices (and ``vt`` records when given), 1-based vertex-only faces."""
+    v = np.asarray(v)
+    faces = np.asarray(faces)
+    with open(obj_mesh_name, "w") as fp:
+        for i in range(v.shape[0]):
+            fp.write("v %f %f %f\n" % (v[i, 0], v[i, 1], v[i, 2]))
+        if vt is not None:
+            vt = np.asarray(vt)
+            for i in range(vt.shape[0]):
+                fp.write("vt %f %f\n" % (vt[i, 0], vt[i, 1]))
+        for f in faces:  # faces are 1-based in OBJ
+            fp.write("f %d %d %d\n" % (f[0] + 1, f[1] + 1, f[2] + 1))

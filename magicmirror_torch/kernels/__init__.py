@@ -26,7 +26,11 @@ of TPU kernels) of ``magicmirror/ops/pallas`` that the launch stands for:
     ``ops.sampling.texture_mapping`` on CUDA tensors (unmasked:
     ``texture_unmasked_fwd``, ``texture_unmasked_bwd``;
     ``texture_tpu.py::_kernel``, whose backward the JAX package leaves to
-    autodiff).
+    autodiff);
+  * ``csrc/texture_fwd.cu``'s masked body cut short by level (1, 4 or 5)
+    behind ``ops.sampling.texture_parts``: ``texture_parts``
+    (``benchmarks/bench_texcells_parts.py::make_kernel``, the probe of K3's
+    TPU body; run by ``magicmirror_torch/benchmarks/texture_parts.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each launch adds one to exactly one counter,
@@ -38,7 +42,7 @@ from __future__ import annotations
 LAUNCHES = dict.fromkeys(
     ("raster_fwd", "texture_fwd", "raster_bwd", "texture_bwd",
      "raster_fwd_dense", "raster_bwd_dense", "raster_exact", "raster_exact_fused",
-     "texture_unmasked_fwd", "texture_unmasked_bwd"), 0)
+     "texture_unmasked_fwd", "texture_unmasked_bwd", "texture_parts"), 0)
 
 
 def reset_launches() -> None:

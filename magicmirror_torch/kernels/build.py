@@ -39,6 +39,8 @@ _SIGNATURES = {
     "raster_fwd_plain": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P),
     # uv, mask (null = unmasked), tex, B, H, W, Ht, Wt, out, stream
     "texture_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P),
+    # uv, mask, tex, B, H, W, Ht, Wt, level, never (NaN), out, stream
+    "texture_parts": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P),
     # rows, cull, g_sumlog, B, F + 1, H, W, sigmainv, G, stream
     "raster_bwd": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P),
     # g, uv, mask (null = unmasked), tex, B, H, W, Ht, Wt, d_tex, d_uv, stream

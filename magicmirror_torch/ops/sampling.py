@@ -7,7 +7,8 @@ both their modes: masked behind ``texture_render``, unmasked (no mask:
 every pixel sampled) behind ``texture_mapping``.  Their plain versions are
 ``texture_mapping_plain``, ``texture_render_plain`` =
 ``texture_mapping_plain(uv) * mask`` and ``texture_backward_plain``, the
-autograd of either.
+autograd of either.  ``texture_parts`` runs the masked kernel's body cut
+short by level, the timing probe of ``magicmirror_torch/benchmarks``.
 """
 from __future__ import annotations
 
@@ -98,6 +99,42 @@ def texture_fwd(texcoord, textures, texmask=None):
     build.launch("texture_fwd", texcoord.data_ptr(), mask_ptr, textures.data_ptr(),
                  B, H, W, Ht, Wt, out.data_ptr())
     kernels.LAUNCHES["texture_fwd" if texmask is not None else "texture_unmasked_fwd"] += 1
+    return out
+
+
+TEXTURE_PARTS_LEVELS = (1, 4, 5)
+
+
+def texture_parts_plain(texcoord, textures, texmask, level: int):
+    """Plain version of the texture kernel's body by level: zeros below 5,
+    :func:`texture_render_plain` at 5."""
+    if level not in TEXTURE_PARTS_LEVELS:
+        raise ValueError(f"level must be one of {TEXTURE_PARTS_LEVELS}, got {level!r}")
+    if level < 5:
+        return torch.zeros((*texcoord.shape[:3], 3), dtype=torch.float32,
+                           device=texcoord.device)
+    return texture_render_plain(texcoord, textures, texmask)
+
+
+def texture_parts(texcoord, textures, texmask, level: int):
+    """The masked texture kernel's body cut short at ``level``, the port of
+    the probe ``benchmarks/bench_texcells_parts.py::make_kernel``: level 1
+    reads the mask, level 4 also the uv and the 12 texel taps with their
+    weights, and both write zeros; level 5 is :func:`texture_fwd` with a
+    mask.  CPU tensors run :func:`texture_parts_plain`; CUDA tensors launch
+    ``csrc/texture_fwd.cu``'s instantiation for ``level``.  fp32, contiguous
+    NHWC inputs; any other level raises."""
+    if level not in TEXTURE_PARTS_LEVELS:
+        raise ValueError(f"level must be one of {TEXTURE_PARTS_LEVELS}, got {level!r}")
+    if not texcoord.is_cuda:
+        return texture_parts_plain(texcoord, textures, texmask, level)
+    B, H, W, Ht, Wt, mask_ptr = _check_texture_args(texcoord, textures, texmask)
+    if mask_ptr is None:
+        raise ValueError("texture_parts: the probe is of the masked kernel; give a mask")
+    out = torch.empty((B, H, W, 3), dtype=torch.float32, device=texcoord.device)
+    build.launch("texture_parts", texcoord.data_ptr(), mask_ptr, textures.data_ptr(),
+                 B, H, W, Ht, Wt, level, float("nan"), out.data_ptr())
+    kernels.LAUNCHES["texture_parts"] += 1
     return out
 
 

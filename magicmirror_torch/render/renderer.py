@@ -76,6 +76,7 @@ class DiffRender:
         self.edges = dev(edges)
         self.edge2faces = dev(e2f)
         self.faces = dev(faces)
+        self.uvs = mesh.uvs  # (T, 2) numpy, for the OBJ files the trainer writes
         self.face_uvs = dev(mesh.uvs[mesh.face_uvs_idx])  # (F, 3, 2)
 
     def project(self, attributes):

@@ -18,7 +18,7 @@ covers: ``ServeOptions`` defaults are those of
 two configurations beside the default: the human-body recipe on the dense
 SMPL template, and the defaults with ``soft_mode="exact"``.
 
-``update_bn`` and ``Reconstructor`` run the encoder and the renders in
+``estimate_bn_stats`` and ``Reconstructor`` run the encoder and the renders in
 float32 without TF32, whatever the caller's ``torch.backends`` flags say
 (cuDNN allows TF32 convolutions by default): the port is held to the
 float32 JAX reference at that precision, and its timings are taken so.
@@ -142,12 +142,14 @@ def _no_tf32():
 
 @_no_tf32()
 @torch.no_grad()
-def update_bn(netE: AttributeEncoder, batches, template, lpl) -> None:
-    """Re-estimate the BatchNorm running statistics from ``batches`` of
+def estimate_bn_stats(netE: AttributeEncoder, batches, template, lpl) -> None:
+    """Estimate the BatchNorm running statistics afresh from ``batches`` of
     images, as ``torch.optim.swa_utils.update_bn`` does: reset, then a
     cumulative average over the batches with the BatchNorm layers (and only
-    they: dropout stays off) in train mode.  The counterpart of
-    ``make_update_bn`` (``magicmirror/train/state.py:101``)."""
+    they: dropout stays off) in train mode.  It gives serving a model with
+    statistics of the photos at hand; it is not the JAX package's
+    ``make_update_bn``, which moves the current statistics by momentum with
+    dropout on (the trainer's refresh, ``train.state.update_bn``)."""
     bns = [m for m in netE.modules() if isinstance(m, _BatchNorm)]
     momenta = [m.momentum for m in bns]
     was_training = netE.training
@@ -167,11 +169,14 @@ class Reconstructor:
     """The eval step: encode, render the reconstruction, a random-azimuth
     view and its +90 degree twin, and the reconstruction at +-90 degrees."""
 
-    def __init__(self, netE: AttributeEncoder, diff_render: DiffRender, opt: ServeOptions):
+    def __init__(self, netE: AttributeEncoder, diff_render: DiffRender, opt: ServeOptions,
+                 template=None):
+        """``template``: the live template (V, 3) the encoder deforms; the
+        renderer's initial one when None."""
         self.netE = netE.eval()
         self.diff_render = diff_render
         self.azi_scope = opt.azi_scope
-        self.template = diff_render.vertices_init
+        self.template = diff_render.vertices_init if template is None else template
         self.lpl = diff_render.vertices_laplacian_matrix
 
     @_no_tf32()

@@ -9,14 +9,17 @@ configurations the port covers.
 configurations beside the default (``serve.PRESETS``).  ``TrainOptions``
 holds the flags the step reads with the defaults of
 ``magicmirror/configs/flags.py``; an option outside the port raises
-``NotImplementedError``.  ``steps_per_call``, ``donate_state`` and
-``band_capacity`` answer to limits of the TPU runtime; they are accepted and
-ignored.
+``NotImplementedError`` (``multigpus`` and ``fp16`` among them).
+``steps_per_call``, ``donate_state`` and ``band_capacity`` answer to limits
+of the TPU runtime; they are accepted and ignored: one step per batch, the
+JAX package's ``steps_per_call = 1``.  The epochs around the step are
+``train.trainer.trainer``.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -75,6 +78,29 @@ class TrainOptions(ServeOptions):
     steps_per_call: int = 16
     donate_state: bool = False
     band_capacity: int = 0
+    # the trainer's flags (``train.trainer.trainer``)
+    niter: int = 600
+    lr: float = 0.0001
+    scheduler: str = "cosine"
+    gamma: float = 0.01
+    warm_epoch: int = 40
+    update_shape: int = 1
+    resume: bool = False
+    swa: bool = True
+    swa_start: int = 500
+    swa_interval: int = 1
+    em: float = 1.0
+    em_gap: int = 1
+    em_step: float = 0.1
+    update_bn: bool = False
+    white: bool = True
+    smooth: float = 0.5
+    clip: float = 0.05
+    cross: bool = False
+    eps: float = 0.2
+    topK: float = 0.01
+    multigpus: bool = False
+    fp16: bool = False
 
 
 def unported_train_options(opt: TrainOptions) -> list[str]:
@@ -88,6 +114,9 @@ def unported_train_options(opt: TrainOptions) -> list[str]:
         unported.append(f"sn_dis={opt.sn_dis}")
     if opt.adamw and not opt.amsgrad:
         unported.append("adamw without amsgrad")
+    for flag in ("multigpus", "fp16"):
+        if getattr(opt, flag):
+            unported.append(flag)
     for flag in ("inv", "dis1", "dis2", "hmr"):
         if getattr(opt, flag) > 0:
             unported.append(f"{flag}={getattr(opt, flag)}")
@@ -132,6 +161,7 @@ def build_trainer(opt: TrainOptions, device="cuda") -> Trainer:
         netE=netE, netD=netD,
         opt_e=make_optimizer_e(netE, beta1=opt.beta1, wd=opt.wd, amsgrad=opt.amsgrad),
         opt_d=make_optimizer_d(netD, beta1=opt.beta1, wd=opt.wd, amsgrad=opt.amsgrad),
-        template=diff_render.vertices_init.clone())
+        template=diff_render.vertices_init.clone(),
+        em_step=float(np.float32(opt.em_step)))  # a float32 scalar, as in the JAX state
     generator = torch.Generator(device=device).manual_seed(opt.manualSeed)
     return Trainer(opt, diff_render, state, generator)

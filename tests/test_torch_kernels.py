@@ -25,7 +25,8 @@ from magicmirror_torch.ops.rasterize import (_tile_overlaps, dibr_rasterization,
                                              rasterize_plain, soft_backward_plain)
 from magicmirror_torch.ops.sampling import (texture_backward_plain, texture_bwd, texture_fwd,
                                             texture_mapping, texture_mapping_plain,
-                                            texture_render, texture_render_plain)
+                                            texture_parts, texture_render,
+                                            texture_render_plain)
 from magicmirror_torch.render.renderer import DiffRender
 from magicmirror_torch.render.synthetic import bench_attributes, to_torch
 
@@ -80,6 +81,16 @@ def test_wrappers_refuse_cpu_tensors():
     assert build._LIB is None
 
 
+def test_texture_parts_takes_the_plain_path_on_the_cpu():
+    uv, tex, mask = torch.rand(1, 8, 8, 2), torch.rand(1, 16, 8, 3), torch.ones(1, 8, 8)
+    count = dict(kernels.LAUNCHES)
+    assert torch.equal(texture_parts(uv, tex, mask, 1), torch.zeros(1, 8, 8, 3))
+    assert torch.equal(texture_parts(uv, tex, mask, 5), texture_render_plain(uv, tex, mask))
+    with pytest.raises(ValueError, match="level"):
+        texture_parts(uv, tex, mask, 3)
+    assert kernels.LAUNCHES == count and build._LIB is None
+
+
 def test_cpu_backward_takes_the_plain_path():
     _, dr, att = _raster_inputs(32, 2, "cpu")
     for key in ("vertices", "textures", "lights", "azimuths"):
@@ -126,6 +137,28 @@ def test_texture_kernel_matches_plain(cuda_device):
     out = texture_render(uv, tex, mask)
     assert kernels.LAUNCHES["texture_fwd"] == count + 1
     parity.check_texture(parity.texture_stats(out, texture_render_plain(uv, tex, mask), mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [1, 4, 5])
+def test_texture_parts_levels_match_plain(cuda_device, level):
+    """K9c: the masked texture kernel's body by level; zeros below 5, and at
+    5 the texture kernel's own output, bit for bit."""
+    rs = np.random.RandomState(6)
+    uv = torch.as_tensor(rs.uniform(-0.2, 1.2, (3, 64, 64, 2)).astype(np.float32),
+                         device=cuda_device)
+    tex = torch.as_tensor(rs.rand(3, 128, 64, 3).astype(np.float32), device=cuda_device)
+    mask = torch.as_tensor((rs.rand(3, 64, 64) > 0.4).astype(np.float32),
+                           device=cuda_device)
+    count = kernels.LAUNCHES["texture_parts"]
+    out = texture_parts(uv, tex, mask, level)
+    assert kernels.LAUNCHES["texture_parts"] == count + 1
+    if level < 5:
+        assert torch.equal(out, torch.zeros_like(out))
+    else:
+        assert torch.equal(out, texture_fwd(uv, tex, mask))
+        parity.check_texture(parity.texture_stats(out, texture_render_plain(uv, tex, mask),
+                                                  mask))
 
 
 @pytest.mark.cuda

@@ -31,7 +31,8 @@ from magicmirror_torch import parity
 from magicmirror_torch.models.convert import load_flax_variables
 from magicmirror_torch.render.renderer import DiffRender
 from magicmirror_torch.render.synthetic import smooth_random
-from magicmirror_torch.serve import Reconstructor, ServeOptions, build_models, update_bn
+from magicmirror_torch.serve import (Reconstructor, ServeOptions, build_models,
+                                     estimate_bn_stats)
 from torch_parity import REPO, SPHERE, as_numpy_tree, flax_shapes, random_variables, t
 
 torch.set_num_threads(1)
@@ -118,7 +119,7 @@ def test_encoder_runs_without_tf32_whatever_the_caller_set(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     images = torch.zeros(1, S, S, 4)
     rec.encode(images)
-    update_bn(rec.netE, [images], dr.vertices_init, dr.vertices_laplacian_matrix)
+    estimate_bn_stats(rec.netE, [images], dr.vertices_init, dr.vertices_laplacian_matrix)
     assert seen == [(False, False)] * 2
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
 
@@ -139,10 +140,14 @@ def test_options_outside_the_port_raise(change):
 
 
 def test_port_imports_without_jax_flax_yaml_or_pil():
+    """Every module of the port imports with JAX, Flax, optax, yaml, Pillow,
+    imageio, TensorBoard and the JAX package blocked (the card's machine has
+    none of them; Pillow is reached only by a .jpg name, inside a function)."""
     names = [m.name for m in pkgutil.walk_packages(magicmirror_torch.__path__,
                                                    "magicmirror_torch.")]
     code = ("import sys\n"
-            "for blocked in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'PIL', 'magicmirror'):\n"
+            "for blocked in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'PIL', 'imageio',\n"
+            "                'tensorboard', 'magicmirror'):\n"
             "    sys.modules[blocked] = None\n"
             "import importlib\n"
             f"for name in {names!r}:\n"
@@ -153,7 +158,9 @@ def test_port_imports_without_jax_flax_yaml_or_pil():
     assert proc.returncode == 0, proc.stderr
     for module in ("serve", "kernels.build", "losses.gan", "losses.mesh_reg", "losses.recon",
                    "models.discriminators", "train", "train.optim", "train.state",
-                   "train.train_step"):
+                   "train.train_step", "train.trainer", "train.em_update",
+                   "train.checkpoints", "eval.metrics", "eval.images", "eval.reports",
+                   "eval.gifs", "eval.inception", "eval.fid", "benchmarks.texture_parts"):
         assert f"magicmirror_torch.{module}" in names, module
     for name in names:  # and they import here too
         importlib.import_module(name)

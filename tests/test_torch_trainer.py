@@ -46,7 +46,7 @@ def test_train_options_defaults_are_the_flag_defaults():
     {"bg": True}, {"hard": True}, {"inv": 0.1}, {"dis1": 0.1}, {"dis2": 0.1},
     {"lambda_lc": 0.1}, {"gan_type": "lsgan"}, {"hmr": 1.0}, {"makeup": 1},
     {"norm": "in"}, {"pretrains": "res50"}, {"sn_dis": 1},
-    {"adamw": True, "amsgrad": False}])
+    {"adamw": True, "amsgrad": False}, {"multigpus": True}, {"fp16": True}])
 def test_options_outside_the_port_raise(change):
     with pytest.raises(NotImplementedError, match=next(iter(change))):
         build_trainer(_tiny(**change), device="cpu")
