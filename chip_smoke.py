@@ -19,7 +19,10 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      cameras (counted under their dense names, nothing dropped, timed, with
      the share of the all-faces scan); the 'exact' soft mode, fused and
      plain, at the same three shapes, with its autograd backward at b4;
-     the unmasked texture mode, forward and backward; and K9c, the probe of
+     the unmasked texture mode, forward and backward; the rasterizer's
+     tiles where they work hardest (a tile that thousands of faces reach,
+     survivors from every 256-face pass, a cotangent on every pixel, and
+     the plain mode's sumlog itself on covered pixels); and K9c, the probe of
      the masked texture kernel's body by level (1, 4, 5), on the first 32
      images of dump_uv's camera sweep at 256^2 and 128^2: zeros below level
      5, level 5 the texture kernel's output bit for bit, timed by bursts of
@@ -36,11 +39,13 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      then for each configuration 8 to 24 steps at b32 with dropout on: finite
      metrics, no skipped side, nothing dropped, a falling reconstruction
      loss, and the configuration's kernels launched twice a step each;
-  6. timing with CUDA events (median after warm-up): every kernel against
-     its plain version (and the texture forwards against F.grid_sample) with
-     its bound for this run's inputs, the 'exact' mode's autograd backward,
-     and for each configuration the serving step and the train step with
-     its parts at b32;
+  6. timing: every kernel on the device alone, warm and cold, with its
+     bound for these inputs and the library call where there is one
+     (magicmirror_torch/benchmarks/kernel_times.py: CUDA-graph replays);
+     the plain versions, the fused forward's wrapper as one launch and the
+     'exact' mode's autograd backward with CUDA events (median after
+     warm-up); for each configuration the serving step and the train step
+     with its parts at b32;
   7. with ``--profile STEPS`` only: torch.profiler over STEPS serving steps,
      STEPS train steps and STEPS critic updates alone at b32 / 128^2 of the
      default configuration: the device's busy share of the step, the kernel
@@ -53,7 +58,9 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      (the SWA BatchNorm refresh, the eval with and without SWA); the
      artifacts, result.txt, the checkpoint round trip and the kernel launches
      each call must make are checked, and its times printed.
-The line before the last is the kernels' JSON summary; the last line is
+The line before the last is the kernels' JSON summary (``ms`` and
+``library_ms`` are cold device times, ``warm_ms`` warm ones, ``plain_ms``
+CUDA events around the plain version); the last line is
 {"ok": true, "device": {...}}.  Imports torch, numpy and magicmirror_torch
 only.
 """
@@ -73,14 +80,12 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
 
-import torch.nn.functional as F  # noqa: E402
-
 from magicmirror_torch import kernels, parity  # noqa: E402
 from magicmirror_torch.kernels import build  # noqa: E402
 from magicmirror_torch.losses import recon  # noqa: E402
 from magicmirror_torch.models.convert import init_from_seed  # noqa: E402
-from magicmirror_torch.ops.face_rows import (DENSE_THRESHOLD, SOFT_MARGIN,  # noqa: E402
-                                             coeffs13, face_cull, face_rows, face_verts)
+from magicmirror_torch.ops.face_rows import (DENSE_THRESHOLD,  # noqa: E402
+                                             coeffs13, face_cull, face_rows)
 from magicmirror_torch.ops.rasterize import (dibr_rasterization, pixel_grid,  # noqa: E402
                                              raster_bwd, raster_fwd, raster_fwd_plain,
                                              rasterize_fused, rasterize_fused_plain,
@@ -95,7 +100,11 @@ from magicmirror_torch.render.synthetic import (bench_attributes,  # noqa: E402
                                                smooth_random, to_torch)
 from magicmirror_torch.serve import (Reconstructor, ServeOptions, _no_tf32,  # noqa: E402
                                      build_models, estimate_bn_stats, preset_options)
+from magicmirror_torch.benchmarks import kernel_times  # noqa: E402
 from magicmirror_torch.benchmarks import texture_parts as probe_bench  # noqa: E402
+from magicmirror_torch.benchmarks.kernel_times import (live_pairs, raster_work,  # noqa: E402
+                                                        work_bound)
+from magicmirror_torch.benchmarks.timing import burst_ms  # noqa: E402
 from magicmirror_torch.train import TrainOptions, build_trainer, sample_draws  # noqa: E402
 from magicmirror_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from magicmirror_torch.train.trainer import trainer as run_trainer  # noqa: E402
@@ -216,56 +225,6 @@ def profile(fn, steps):
             "top10_ms": dict(sorted(top.items(), key=lambda kv: -kv[1])[:10])}
 
 
-# the card's published peaks (H100 SXM data sheet): device memory and fp32
-# outside the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-# float operations per unit of data-dependent work, counted from the kernels'
-# sources: per (pixel, surviving face) pair for the rasterizer, per covered
-# pixel for the texture sampler
-FLOPS_PER_UNIT = {"raster_fwd": 34, "raster_bwd": 46, "texture_fwd": 42, "texture_bwd": 78,
-                  # 'exact': the winner test (23) and three segment distances (20 each)
-                  "raster_exact": 90}
-
-
-def live_pairs(rows, height, width, g=None, per_tile=False):
-    """The (pixel, face) pairs the rasterizer kernels visit for these face
-    rows: per 16x16 tile the faces that survive the kernels' culling rule
-    (front-facing, bbox +- the soft margin meets the tile), times 256 pixels.
-    With ``g`` (B, H, W), only the tiles where g is not all zero count: the
-    backward kernel leaves the others at once.  ``per_tile``: the faces live
-    per tile, (B, TY, TX), instead of the total."""
-    dev = rows.device
-    nz, xmin, xmax = rows[..., 25], rows[..., 12], rows[..., 13]
-    ymin, ymax = rows[..., 14], rows[..., 15]
-    c0 = torch.arange(0, width, 16, device=dev, dtype=torch.float32)
-    r0 = torch.arange(0, height, 16, device=dev, dtype=torch.float32)
-    x_lo = -1.0 + 2.0 * c0 / width - SOFT_MARGIN
-    x_hi = -1.0 + 2.0 * (c0 + 16).clamp(max=width) / width + SOFT_MARGIN
-    y_hi = 1.0 - 2.0 * r0 / height + SOFT_MARGIN
-    y_lo = 1.0 - 2.0 * (r0 + 16).clamp(max=height) / height - SOFT_MARGIN
-    in_x = (xmax[:, None, :] >= x_lo[None, :, None]) & (xmin[:, None, :] <= x_hi[None, :, None])
-    in_y = (ymax[:, None, :] >= y_lo[None, :, None]) & (ymin[:, None, :] <= y_hi[None, :, None])
-    front = (nz > 0)[:, None, :]
-    # faces live per tile, (B, TY, TX): the product of the two overlaps
-    counts = torch.einsum("byf,bxf->byx", (in_y & front).float(), in_x.float())
-    if g is not None:
-        B = g.shape[0]
-        active = g.reshape(B, height // 16, 16, width // 16, 16).abs().amax(dim=(2, 4)) > 0
-        counts = counts * active
-    if per_tile:
-        return counts
-    return int(counts.sum().item()) * 256
-
-
-def bound_ms(name, nbytes, units):
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the fp32 rate -> (ms, which)."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = units * FLOPS_PER_UNIT[name] / PEAK_FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def chain_to_vertices(fvi, G):
     """d_fvi of the backward kernel's moments through coeffs13's autograd."""
     fvi = fvi.detach().requires_grad_(True)
@@ -311,19 +270,6 @@ def once_ms(fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
-
-
-def raster_work(rows, height, width, g=None):
-    """(bytes a rasterizer launch must move, its (pixel, face) pairs): the
-    face tables read once; 32 B a pixel written by the fused forward, or g read and
-    13 moments a face written by the backward (``g`` given)."""
-    B, F1 = rows.shape[0], rows.shape[1]
-    P = B * height * width
-    tables = (rows.numel() + B * F1 * 4) * 4  # the rows and their cull table
-    if g is None:
-        return tables + P * 32, live_pairs(rows, height, width)
-    return (tables + P * 4 + B * (F1 - 1) * 13 * 4,
-            live_pairs(rows, height, width, g.reshape(B, height, width)))
 
 
 def dense_parity(height, width, distances, card, errs):
@@ -375,13 +321,15 @@ def dense_parity(height, width, distances, card, errs):
     away = rows.clone()
     away[..., 25] = -1.0  # normal z: every face culled, only the scan is left
     cull, away_cull = face_cull(rows), face_cull(away)
-    t = {"raster_fwd_dense_ms": cuda_ms(lambda: raster_fwd(rows, 7000.0, height, width,
-                                                           cull=cull)),
+    # single launches between CUDA events (the host's launch path included);
+    # the device times are kernel_times' (phase 6)
+    t = {"raster_fwd_dense_single_launch_ms": cuda_ms(
+             lambda: raster_fwd(rows, 7000.0, height, width, cull=cull)),
          "raster_fwd_dense_scan_only_ms": cuda_ms(lambda: raster_fwd(away, 7000.0, height,
                                                                      width, cull=away_cull)),
          "raster_fwd_dense_plain_ms": plain_ms,
-         "raster_bwd_dense_ms": cuda_ms(lambda: raster_bwd(rows, g_sumlog, 7000.0, height,
-                                                           width, cull)),
+         "raster_bwd_dense_single_launch_ms": cuda_ms(
+             lambda: raster_bwd(rows, g_sumlog, 7000.0, height, width, cull)),
          "raster_bwd_dense_scan_only_ms": cuda_ms(lambda: raster_bwd(away, g_sumlog, 7000.0,
                                                                      height, width, away_cull)),
          "raster_bwd_dense_plain_ms": plain_bwd_ms,
@@ -389,7 +337,7 @@ def dense_parity(height, width, distances, card, errs):
     work = {"raster_fwd": raster_work(rows, height, width),
             "raster_bwd": raster_work(rows, height, width, g_sumlog)}
     for name, (nbytes, units) in work.items():
-        t[f"{name}_dense_bound_ms"], t[f"{name}_dense_bound_by"] = bound_ms(name, nbytes, units)
+        t[f"{name}_dense_bound_ms"], t[f"{name}_dense_bound_by"] = work_bound(name, nbytes, units)
     # the busiest tile: how far the far camera piles the faces up
     live = live_pairs(rows, height, width, per_tile=True)
     emit("timing_dense", shape=shape, card=card, covered_pixels=int(out[4].sum()),
@@ -564,6 +512,68 @@ def plain_mode_parity(size, batch, args, errs):
     require((kernels.LAUNCHES["raster_fwd"], kernels.LAUNCHES["raster_bwd"])
             == (count[0] + 1, count[1] + 1), kernels.LAUNCHES)
     errs["raster_fwd"] = max(errs["raster_fwd"], stats["soft_max"])
+
+
+def far_case(template, height, width, batch, distance, seed):
+    """bench.py's attributes with every camera at ``distance``: the farther
+    the camera, the more of the template's faces reach one 16x16 tile."""
+    ratio = height / width
+    dr = DiffRender(template, width, ratio=ratio, init_ellipsoid=2.0 if ratio != 1 else 1.0,
+                    device=DEV)
+    att = bench_attributes(dr.vertices_init.cpu().numpy(), batch, width, seed, height=height)
+    att["distances"][:] = distance
+    fvc, fvi, fn = dr.project(to_torch(att, DEV))
+    return fvi, fvc[..., 2], fn[..., 2], dr.face_uvs, fn
+
+
+def stress_parity(errs):
+    """The rasterizer kernels where their tiles work hardest, each against
+    its plain version at the usual tolerances: a tile that thousands of
+    faces reach (smpl_uv.obj from afar), tiles whose survivors span every
+    256-face pass (sphere.obj from afar), each with a random cotangent on
+    every pixel (so no tile leaves early), and the plain mode's sumlog
+    itself on the covered pixels (parity.sumlog_stats)."""
+    cases = (("every_face_reaches", SMPL, 128, 64, 4, 10.0),
+             ("survivors_span_passes", SPHERE, 64, 64, 32, 10.0),
+             ("cotangent_on_every_pixel", SPHERE, 128, 128, 32, None))
+    for what, template, height, width, batch, distance in cases:
+        if distance is None:
+            args, _ = raster_case(width, batch, SEED + 31)
+        else:
+            args = far_case(template, height, width, batch, distance, SEED + 31)
+        fvi, fnz = args[0], args[2]
+        rows = face_rows(*args).contiguous()
+        out = raster_fwd(rows, 7000.0, height, width)
+        plain = rasterize_fused_plain(*args, height=height, width=width)
+        stats = parity.raster_stats(out, plain)
+        parity.check_raster(stats)
+        g_sumlog = torch.randn((batch, height * width), device=DEV,
+                               generator=torch.Generator(device=DEV).manual_seed(SEED + 31))
+        G = raster_bwd(rows, g_sumlog, 7000.0, height, width)
+        G_plain = soft_backward_plain(fvi, fnz, g_sumlog, 7000.0, height, width)
+        bstats = parity.raster_bwd_stats(G, G_plain, chain_to_vertices(fvi, G),
+                                         chain_to_vertices(fvi, G_plain))
+        busiest = int(live_pairs(rows, height, width, per_tile=True).max())
+        emit("parity_raster_stress", case=what, shape=f"b{batch}/{height}x{width}",
+             busiest_tile_faces=busiest, **stats, **{f"bwd_{k}": v for k, v in bstats.items()})
+        parity.check_raster_bwd(bstats)
+        require(busiest >= {"every_face_reaches": 4096, "survivors_span_passes": 257}.get(
+            what, 1), busiest)
+        fwd = "raster_fwd_dense" if template == SMPL else "raster_fwd"
+        errs[fwd] = max(errs[fwd], stats["soft_max"], stats["normal_max"], stats["uv_max"])
+        bwd = "raster_bwd_dense" if template == SMPL else "raster_bwd"
+        errs[bwd] = max(errs[bwd], float((G - G_plain).abs().max()))
+    args = far_case(SPHERE, 128, 128, 32, 3.0, SEED + 32)
+    fvi, fz, fnz = args[0], args[1], args[2]
+    idx, sumlog = raster_fwd_plain(face_rows(*args).contiguous(), 7000.0, 128, 128)
+    px, py = pixel_grid(128, 128, DEV)
+    idx_p, sumlog_p = rasterize_phase1(px, py, fvi, fz, fnz, 7000.0)
+    stats = parity.sumlog_stats(sumlog, sumlog_p, idx_p, (px, py, fvi, fz, fnz), 7000.0)
+    stats["idx_mismatch"] = int((idx.long() != idx_p).sum())
+    emit("parity_raster_plain_mode_sumlog", shape="b32/128^2", **stats)
+    parity.check_sumlog(stats)
+    require(stats["idx_mismatch"] <= parity.RASTER_TOL["idx_frac"] * idx.numel(), stats)
+    require(stats["sumlog_min_held"] < -30.0, stats)
 
 
 VIEWS = ("Xer", "Xir", "Xir2", "Xer90", "Xer270")  # the eval step's renders
@@ -759,107 +769,66 @@ def train_steps(config, dr):
     return launches, trainer
 
 
-def kernel_timing(size, card):
-    """Every kernel mode that runs on sphere.obj, its plain version and the
-    library call at b32, with each kernel's bound for these inputs; and the
-    'exact' mode's backward, which is autograd of the plain phase 1."""
-    B = 32
-    args, textures = raster_case(size, B, SEED + 7)
+def kernel_timing(size, card, device):
+    """Every kernel mode that runs on sphere.obj at b32: its device times
+    and bound from ``device`` (the lines of ``kernel_times.measure``), its
+    plain version and the library call on the same inputs
+    (``kernel_times.sphere_case``), the fused forward's wrapper as the
+    renderer calls it (one launch between CUDA events: the host's launch
+    path included), and the 'exact' mode's backward, which is autograd of
+    the plain phase 1."""
+    shape = f"b32/{size}^2"
+    c = kernel_times.sphere_case(kernel_times.load_port(), size)
+    args, uv, hard, textures = c["args"], c["uv"], c["hard"], c["textures"]
     fvi, fz, fnz = args[0], args[1], args[2]
-    rows = face_rows(*args).contiguous()
-    cull = face_cull(rows)  # kept, so that the kernel times are the kernels' alone
-    _, soft, uv, _, hard = rasterize_fused(*args, height=size, width=size)
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
-    g_soft = torch.randn(soft.shape, device=DEV, generator=gen)
-    g_sumlog = (g_soft * (soft - 1.0)).reshape(B, -1).contiguous()
-    g_tex = torch.randn((B, size, size, 3), device=DEV, generator=gen)
-    # the one PyTorch call that computes the texture forward: grid_sample at
-    # kaolin's uv convention on the NCHW view of the texture, times the mask
-    uvc = uv.clamp(0.0, 1.0)
-    grid = torch.stack([uvc[..., 0] * 2.0 - 1.0, -(uvc[..., 1] * 2.0 - 1.0)], dim=-1)
-    tex_nchw, mask_nchw = textures.permute(0, 3, 1, 2), hard[:, None]
-
-    def library():
-        return F.grid_sample(tex_nchw, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=False) * mask_nchw
-
-    lib_err = float((library().permute(0, 2, 3, 1) - texture_fwd(uv, textures, hard)).abs().max())
+    g_sumlog, g_tex, g_covered = c["g_sumlog"], c["g_tex"], c["g_covered"]
+    lib_err = float((probe_bench.grid_sample_masked(uv, hard, textures).permute(0, 2, 3, 1)
+                     - texture_fwd(uv, textures, hard)).abs().max())
     require(lib_err <= parity.TEXTURE_TOL, lib_err)
-    t = {
-        "raster_fwd_wrapper_ms": cuda_ms(lambda: rasterize_fused(*args, height=size, width=size)),
-        "raster_fwd_ms": cuda_ms(lambda: raster_fwd(rows, 7000.0, size, size, cull=cull)),
-        "raster_fwd_plain_mode_ms": cuda_ms(lambda: raster_fwd_plain(rows, 7000.0, size, size,
-                                                                     cull=cull)),
-        "raster_fwd_plain_ms": cuda_ms(lambda: rasterize_fused_plain(*args, height=size,
-                                                                     width=size), 1, 5),
-        "texture_fwd_ms": cuda_ms(lambda: texture_fwd(uv, textures, hard)),
-        "texture_fwd_plain_ms": cuda_ms(lambda: texture_render_plain(uv, textures, hard)),
-        "texture_fwd_library_ms": cuda_ms(library),
-        "raster_bwd_ms": cuda_ms(lambda: raster_bwd(rows, g_sumlog, 7000.0, size, size, cull)),
-        "raster_bwd_plain_ms": cuda_ms(lambda: soft_backward_plain(fvi, fnz, g_sumlog, 7000.0,
-                                                                   size, size), 1, 5),
-        "texture_bwd_ms": cuda_ms(lambda: texture_bwd(g_tex, uv, textures, hard)),
-        "texture_bwd_plain_ms": cuda_ms(lambda: texture_backward_plain(g_tex, uv, textures,
-                                                                       hard)),
-    }
-    # the modes of this slice: the 'exact' rasterizer and the unmasked sampler
-    verts = face_verts(fvi).contiguous()
+    lib_err_unmasked = float((probe_bench.grid_sample_masked(uv, None, textures)
+                              .permute(0, 2, 3, 1) - texture_fwd(uv, textures)).abs().max())
+    require(lib_err_unmasked <= parity.TEXTURE_TOL, lib_err_unmasked)
     px, py = pixel_grid(size, size, DEV)
     exact = dict(height=size, width=size, soft_mode="exact")
-
-    def library_unmasked():
-        return F.grid_sample(tex_nchw, grid, mode="bilinear", padding_mode="zeros",
-                             align_corners=False)
-
-    g_covered = g_tex * hard[..., None]
-    lib_err_unmasked = float((library_unmasked().permute(0, 2, 3, 1)
-                              - texture_fwd(uv, textures)).abs().max())
-    require(lib_err_unmasked <= parity.TEXTURE_TOL, lib_err_unmasked)
-    t.update({
+    t = {
+        "raster_fwd_wrapper_single_launch_ms": cuda_ms(
+            lambda: rasterize_fused(*args, height=size, width=size)),
+        "raster_fwd_plain_ms": cuda_ms(lambda: rasterize_fused_plain(*args, height=size,
+                                                                     width=size), 1, 5),
         "raster_fwd_plain_mode_plain_ms": cuda_ms(
             lambda: rasterize_phase1(px, py, fvi, fz, fnz, 7000.0), 1, 3),
-        "raster_exact_fused_ms": cuda_ms(lambda: raster_fwd(rows, 7000.0, size, size, verts,
-                                                            cull)),
+        "texture_fwd_plain_ms": cuda_ms(lambda: texture_render_plain(uv, textures, hard)),
+        "raster_bwd_plain_ms": cuda_ms(lambda: soft_backward_plain(fvi, fnz, g_sumlog, 7000.0,
+                                                                   size, size), 1, 5),
+        "texture_bwd_plain_ms": cuda_ms(lambda: texture_backward_plain(g_tex, uv, textures,
+                                                                       hard)),
         "raster_exact_fused_plain_ms": cuda_ms(lambda: rasterize_fused_plain(*args, **exact),
                                                1, 3),
-        "raster_exact_ms": cuda_ms(lambda: raster_fwd_plain(rows, 7000.0, size, size, verts,
-                                                            cull)),
         "raster_exact_plain_ms": cuda_ms(
             lambda: rasterize_phase1(px, py, fvi, fz, fnz, 7000.0, "exact"), 1, 3),
-        "texture_unmasked_fwd_ms": cuda_ms(lambda: texture_fwd(uv, textures)),
         "texture_unmasked_fwd_plain_ms": cuda_ms(lambda: texture_mapping_plain(uv, textures)),
-        "texture_unmasked_fwd_library_ms": cuda_ms(library_unmasked),
-        # with the cotangent of the 'exact' render: zero on uncovered pixels
-        "texture_unmasked_bwd_ms": cuda_ms(lambda: texture_bwd(g_covered, uv, textures)),
         "texture_unmasked_bwd_plain_ms": cuda_ms(
             lambda: texture_backward_plain(g_covered, uv, textures)),
-    })
+    }
     if size == 128:  # the shape the train step runs it at; seconds at 256^2
         t["raster_exact_backward_autograd_ms"] = cuda_ms(
             lambda: soft_backward_autograd(fvi, fz, fnz, g_sumlog, 7000.0, size, size), 1, 3)
-    P = B * size * size
-    covered = int((hard > 0.5).sum().item())
-    fwd_bytes, pairs = raster_work(rows, size, size)
-    bwd_bytes, pairs_bwd = raster_work(rows, size, size, g_sumlog)
-    sampler_bytes = probe_bench.texture_bytes  # the uv where sampled, the texels touched
-    work = {  # name: (flops per unit, bytes read once and written once, units of work)
-        "raster_fwd": ("raster_fwd", fwd_bytes, pairs),
-        "raster_fwd_plain_mode": ("raster_fwd", fwd_bytes - P * 24, pairs),
-        "raster_bwd": ("raster_bwd", bwd_bytes, pairs_bwd),
-        "texture_fwd": ("texture_fwd", sampler_bytes(uv, hard, textures), covered),
-        "texture_bwd": ("texture_bwd", sampler_bytes(uv, hard, textures, backward=True), covered),
-        "raster_exact_fused": ("raster_exact", fwd_bytes + verts.numel() * 4, pairs),
-        "raster_exact": ("raster_exact", fwd_bytes - P * 24 + verts.numel() * 4, pairs),
-        "texture_unmasked_fwd": ("texture_fwd", sampler_bytes(uv, None, textures), P),
-        "texture_unmasked_bwd": ("texture_bwd", sampler_bytes(uv, None, textures, backward=True),
-                                 P),
-    }
-    for name, (flops, nbytes, units) in work.items():
-        t[f"{name}_bound_ms"], t[f"{name}_bound_by"] = bound_ms(flops, nbytes, units)
-    emit("timing_kernels", shape=f"b32/{size}^2", card=card, covered_pixels=covered,
-         pairs=pairs, pairs_bwd=pairs_bwd, library_max_abs_err=lib_err,
-         library_unmasked_max_abs_err=lib_err_unmasked, **t)
+    for rec in device:
+        if rec["shape"] == shape:
+            t.update(device_entries(rec))
+    emit("timing_kernels", shape=shape, card=card, covered_pixels=int((hard > 0.5).sum()),
+         library_max_abs_err=lib_err, library_unmasked_max_abs_err=lib_err_unmasked, **t)
     return t
+
+
+def device_entries(rec):
+    """A ``kernel_times`` line as the kernels' summary reads it: ``ms`` is
+    the cold device time."""
+    name = rec["name"]
+    return {f"{name}_ms": rec["cold_ms"], f"{name}_warm_ms": rec["warm_ms"],
+            f"{name}_burst_ms": rec["burst_ms"], f"{name}_bound_ms": rec["bound_ms"],
+            f"{name}_bound_by": rec["bound_by"],
+            f"{name}_library_ms": rec.get("library_cold_ms")}
 
 
 def training_timing(trainer, dr, batch, reps=10):
@@ -931,18 +900,20 @@ def texture_parts_phase(size, card, errs):
     lib = probe_bench.grid_sample_masked(uv, hard, tex).permute(0, 2, 3, 1)
     require(float((lib - outs[5]).abs().max()) <= parity.TEXTURE_TOL, "grid_sample disagrees")
     t = probe_bench.time_levels(uv, hard, tex)
-    t["level5_plain_ms"] = probe_bench.burst_ms(lambda: texture_render_plain(uv, tex, hard), 20)
-    t["texture_fwd_ms"] = probe_bench.burst_ms(lambda: texture_fwd(uv, tex, hard))
+    t["level5_plain_ms"] = burst_ms(lambda: texture_render_plain(uv, tex, hard), 20)
+    t["texture_fwd_ms"] = burst_ms(lambda: texture_fwd(uv, tex, hard))
     per_image = hard.reshape(B, -1).sum(dim=1)
     emit("timing_texture_parts", shape=f"b{B}/{size}^2", card=card,
          covered_pixels_per_image_mean=float(per_image.mean()),
          covered_pixels_per_image_min=int(per_image.min()),
          texels_touched=probe_bench.texels_touched(uv, hard, tex), **t)
-    return launches, {"texture_parts_ms": t["level5_ms"],
+    return launches, {"texture_parts_ms": t["level5_cold_ms"],
+                      "texture_parts_warm_ms": t["level5_warm_ms"],
+                      "texture_parts_burst_ms": t["level5_ms"],
                       "texture_parts_plain_ms": t["level5_plain_ms"],
                       "texture_parts_bound_ms": t["level5_bound_ms"],
                       "texture_parts_bound_by": t["level5_bound_by"],
-                      "texture_parts_library_ms": t["level5_library_ms"]}
+                      "texture_parts_library_ms": t["level5_library_cold_ms"]}
 
 
 class PhotoLoader:
@@ -1087,9 +1058,7 @@ def trainer_phase(card):
 
 def main(profile_steps=0):
     # 1. toolchain
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = kernel_times.card()
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
     emit("toolchain", python=sys.version.split()[0], torch=torch.__version__,
@@ -1125,6 +1094,7 @@ def main(profile_steps=0):
         plain_mode_parity(size, batch, args, errs)
         exact_parity(size, batch, errs)
         unmasked_parity(size, batch, errs)
+    stress_parity(errs)
     # the dense template: the Market shape and bench.py's, near and far cameras,
     # and the recipe's own distance range (the main path's, kept for the summary)
     dense = {(h, w, d): dense_parity(h, w, d, card, errs)
@@ -1153,7 +1123,12 @@ def main(profile_steps=0):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    times = {size: kernel_timing(size, card) for size in (256, 128)}
+    # every kernel on the device alone, warm and cold (kernel_times), then
+    # the plain versions and the library calls on the same inputs
+    device = kernel_times.measure(kernel_times.load_port())
+    for rec in device:
+        emit("timing_device", card=card, **rec)
+    times = {size: kernel_timing(size, card, device) for size in (256, 128)}
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     for config, (rec, dr, photos) in recs.items():
         batch = photos.repeat(8, 1, 1, 1)  # b32
@@ -1193,7 +1168,10 @@ def main(profile_steps=0):
     # the kernels' summary: name -> (source, the TPU kernel it replaces, the
     # configuration whose main path launches it, where its times were taken)
     csrc, pallas = "magicmirror_torch/csrc/", "magicmirror/ops/pallas/"
-    t128, market = times[128], dense[(128, 64, (2.0, 6.0))]
+    t128, market = times[128], dict(dense[(128, 64, (2.0, 6.0))])
+    for rec in device:
+        if rec["shape"] == "b32/128x64/smpl_uv/dist2-6":
+            market.update(device_entries(rec))
     kernel_table = {
         "raster_fwd": ("raster_fwd.cu", pallas + "rasterize_v4.py:988", "default", t128),
         "texture_fwd": ("texture_fwd.cu", pallas + "texture_cells.py:214", "default", t128),
@@ -1232,6 +1210,7 @@ def main(profile_steps=0):
             "launches_training": train_launches[config][name] if config else 0,
             "launches_serving": serve_launches[config][name] if config else 0,
             "max_abs_err": errs[counted], "ms": t[f"{timed}_ms"],
+            "warm_ms": t[f"{timed}_warm_ms"],
             "plain_ms": t[f"{timed}_plain_ms"], "bound_ms": t[f"{timed}_bound_ms"],
             "bound_by": t[f"{timed}_bound_by"], "library_ms": t.get(f"{timed}_library_ms")})
         if config or name == "texture_parts":

@@ -22,8 +22,6 @@ Needs a CUDA device.
 from __future__ import annotations
 
 import json
-import math
-import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -34,16 +32,13 @@ from .. import kernels, resolve_device
 from ..ops.rasterize import rasterize_fused
 from ..ops.sampling import TEXTURE_PARTS_LEVELS, texture_parts
 from ..render.renderer import DiffRender
+from .timing import burst_ms, card, clone_inputs, cold_copies, graph_ms
+from .timing import bound_ms as work_bound_ms
 
 SPHERE = Path(__file__).resolve().parents[2] / "template" / "sphere.obj"
 BATCH, SIZES = 32, (256, 128)
 # dump_uv's camera distance ranges, one per repetition in turn
 DISTANCE_RANGES = ((2, 4), (2, 2.5), (2, 7), (3, 7))
-# the card's published figures (H100 SXM data sheet): device memory, fp32
-# outside the tensor cores, and the L2 cache
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-L2_BYTES = 50 * 2**20
 FLOPS_PER_COVERED_PIXEL = 42  # the bilinear sample, counted from csrc/texture_fwd.cu
 
 
@@ -89,11 +84,12 @@ def probe(uv, hard, tex, levels=TEXTURE_PARTS_LEVELS) -> dict:
 def grid_sample_masked(uv, hard, tex):
     """The one PyTorch call that computes level 5: ``F.grid_sample`` at
     kaolin's uv convention on the NCHW view of the texture, times the mask
-    -> (B, 3, H, W)."""
+    -> (B, 3, H, W); with ``hard`` None the unmasked sampler's call."""
     uvc = uv.clamp(0.0, 1.0)
     grid = torch.stack([uvc[..., 0] * 2.0 - 1.0, -(uvc[..., 1] * 2.0 - 1.0)], dim=-1)
-    return F.grid_sample(tex.permute(0, 3, 1, 2), grid, mode="bilinear",
-                         padding_mode="zeros", align_corners=False) * hard[:, None]
+    out = F.grid_sample(tex.permute(0, 3, 1, 2), grid, mode="bilinear",
+                        padding_mode="zeros", align_corners=False)
+    return out if hard is None else out * hard[:, None]
 
 
 def texels_touched(uv, hard, tex) -> int:
@@ -143,55 +139,7 @@ def bound_ms(level: int, uv, hard, tex) -> tuple[float, str]:
     larger of its bytes (:func:`texture_bytes`) over the memory rate and its
     operations over the fp32 rate -> (ms, "bytes" or "operations")."""
     flops = int((hard > 0.5).sum().item()) * FLOPS_PER_COVERED_PIXEL if level >= 4 else 0
-    t_bytes = texture_bytes(uv, hard, tex, level) / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def burst_ms(fn, launches: int = 100, warmup: int = 3) -> float:
-    """Milliseconds per call of ``fn``: one pair of CUDA events around
-    ``launches`` calls, divided by their number."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(launches):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / launches
-
-
-def graph_ms(fns, launches: int = 100, warmup: int = 3) -> float:
-    """Milliseconds per call on the device alone: ``launches`` calls, taking
-    ``fns`` in turn, captured in one CUDA graph; one replay between a pair of
-    CUDA events, divided by their number.  A burst from Python
-    (:func:`burst_ms`) queues kernels no faster than the host launches them;
-    the replay has no host in between.  With one function its inputs stay in
-    the L2 from call to call (warm); with several on inputs of their own,
-    together past the L2, each call finds its inputs in device memory
-    (cold).  The capture launches nothing, so the launch counts are put back
-    as they were."""
-    counts = dict(kernels.LAUNCHES)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            for fn in fns:
-                fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(launches):
-            fns[i % len(fns)]()
-    kernels.LAUNCHES.update(counts)
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / launches
+    return work_bound_ms(texture_bytes(uv, hard, tex, level), flops)
 
 
 def time_levels(uv, hard, tex) -> dict:
@@ -202,41 +150,34 @@ def time_levels(uv, hard, tex) -> dict:
     inputs, taken in turn, as make the bytes the level reads
     (:func:`texture_bytes` less the output) three times the L2."""
     inputs, out_bytes = (uv, hard, tex), hard.numel() * 12
-
-    def cold_copies(level):
-        read = texture_bytes(uv, hard, tex, level) - out_bytes
-        return min(math.ceil(3 * L2_BYTES / read), 100)
-
-    n = {level: cold_copies(level) for level in TEXTURE_PARTS_LEVELS}
-    copies = [inputs] + [tuple(x.clone() for x in inputs) for _ in range(max(n.values()) - 1)]
+    n = {level: cold_copies(texture_bytes(uv, hard, tex, level) - out_bytes)
+         for level in TEXTURE_PARTS_LEVELS}
+    copies = clone_inputs(inputs, max(n.values()))
     t = {}
     for level in TEXTURE_PARTS_LEVELS:
         runs = [lambda u=u, h=h, x=x: texture_parts(u, x, h, level) for u, h, x in copies]
         t[f"level{level}_ms"] = burst_ms(runs[0])
-        t[f"level{level}_warm_ms"] = graph_ms(runs[:1])
-        t[f"level{level}_cold_ms"] = graph_ms(runs[:n[level]])
+        t[f"level{level}_warm_ms"] = graph_ms(runs[:1], kernels.LAUNCHES)
+        t[f"level{level}_cold_ms"] = graph_ms(runs[:n[level]], kernels.LAUNCHES)
         t[f"level{level}_cold_copies"] = n[level]
         t[f"level{level}_bound_ms"], t[f"level{level}_bound_by"] = bound_ms(level, *inputs)
     # grid_sample reads at least what level 5 reads
     library = [lambda u=u, h=h, x=x: grid_sample_masked(u, h, x) for u, h, x in copies]
     t["level5_library_ms"] = burst_ms(library[0])
-    t["level5_library_warm_ms"] = graph_ms(library[:1])
-    t["level5_library_cold_ms"] = graph_ms(library[:n[5]])
+    t["level5_library_warm_ms"] = graph_ms(library[:1], kernels.LAUNCHES)
+    t["level5_library_cold_ms"] = graph_ms(library[:n[5]], kernels.LAUNCHES)
     return t
 
 
 def main():
     device = resolve_device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
     for size in SIZES:
         uv, hard = uv_sweep(size=size, device=device)
         uv, hard = uv[:BATCH].contiguous(), hard[:BATCH].contiguous()
         tex = random_texture(BATCH, size, device)
         covered = hard.reshape(BATCH, -1).sum(dim=1)
         shape = f"b{BATCH}/{size}^2"
-        print(json.dumps({"card": card, "shape": shape,
+        print(json.dumps({"card": card(), "shape": shape,
                           "covered_pixels_per_image": {"mean": float(covered.mean()),
                                                        "min": int(covered.min()),
                                                        "max": int(covered.max())},

@@ -163,6 +163,76 @@ def read_image(path: str, mode: str | None = None) -> np.ndarray:
     return arr
 
 
+# Pillow's fixed point for 8-bit resampling (libImaging/Resample.c): weights
+# in units of 2^-22, a sum rounded by adding half a unit
+_RESAMPLE_BITS = 32 - 8 - 2
+
+
+def _bicubic(x: float) -> float:
+    """Pillow's bicubic kernel (a = -0.5)."""
+    a, x = -0.5, abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
+    if x < 2.0:
+        return (((x - 5.0) * x + 8.0) * x - 4.0) * a
+    return 0.0
+
+
+def _resample_weights(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
+    bicubic filter over the whole axis -> (first source index (out,), integer
+    weights (out, k)): the kernel is widened by the scale when it shrinks,
+    its taps are normalised to sum 1 in double, then rounded half away from
+    zero to units of 2^-22."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)  # int() truncates, as C's cast
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        w = [_bicubic((x + xmin - center + 0.5) / filterscale) for x in range(xmax)]
+        total = 0.0
+        for v in w:
+            total += v
+        first[xx] = xmin
+        for x, v in enumerate(w):
+            v = v / total if total != 0.0 else v
+            weights[xx, x] = int(v * (1 << _RESAMPLE_BITS) + (0.5 if v >= 0 else -0.5))
+    return first, weights
+
+
+def _resample_axis(arr: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resampling along ``axis`` of a uint8 array."""
+    first, weights = _resample_weights(arr.shape[axis], out_size)
+    src = np.moveaxis(arr, axis, 0).astype(np.int64)
+    n = src.shape[0]
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_RESAMPLE_BITS - 1), np.int64)
+    for k in range(weights.shape[1]):
+        index = np.minimum(first + k, n - 1)  # taps past the edge carry weight 0
+        w = weights[:, k].reshape((-1,) + (1,) * (src.ndim - 1))
+        acc += src[index] * w
+    out = np.clip(acc >> _RESAMPLE_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_bicubic(arr: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """(H, W) or (H, W, C) uint8 resized to ``size`` = (width, height) as
+    Pillow's ``Image.resize(size)`` does for an "L" or "RGB" image at its
+    default filter (bicubic): the horizontal pass first, each pass rounded to
+    uint8, and the same array back when the size is already right."""
+    width, height = size
+    out = arr
+    if out.shape[1] != width:
+        out = _resample_axis(out, width, axis=1)
+    if out.shape[0] != height:
+        out = _resample_axis(out, height, axis=0)
+    return out
+
+
 def save_array_image(img, path: str, quality: int = 100) -> None:
     """(H, W, C) or (H, W) float in [0, 1] -> a file: PNG, or JPEG at
     ``quality`` for a .jpg / .jpeg name (JPEG quantisation is part of the

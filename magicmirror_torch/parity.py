@@ -31,6 +31,23 @@ Rasterizer (``raster_fwd`` vs ``rasterize_fused_plain``):
     (``rasterize_fused_plain(tile_cull=True)``) soft is held to 3e-4 there
     too.  The margin is the JAX package's own (``_SOFT_MARGIN``), whose
     kernels truncate the same sum.
+The plain mode returns sumlog itself.  On a covered pixel it is a sum of
+large terms (-15.9 for each face that covers it), and a term with p near 1
+is ill conditioned: log(1 - p) moves by p / (1 - p) times the relative
+change of p, and the kernel's edge distances (affine rows) and the plain
+path's (cross products) differ by ~1e-7, as do two exp implementations by
+their last bit.  Where a face's edge passes within ~1e-3 of the pixel
+centre, 1 - p is ~1e-5 and the term is not determined in float32 at all.
+So sumlog is held to the soft bound (3e-4) on the covered pixels where
+every face's term is well conditioned: p <= 0.5, or the face covers the
+pixel (d = 0 exactly, p = 1 - 1e-7 on either side).  tests/
+sumlog_conditioning.py measures the largest difference by threshold on the
+card, for the kernel of any checkout (at b32 / 128^2 it falls about fourfold
+from p <= 0.9 to p <= 0.5).  The other covered pixels are held to a float64
+witness, the same sum taken in float64 with float32's value of 1 - 1e-7
+(1 - 2^-23): on those pixels the kernel's largest and its mean distance
+from it may be at most twice the plain float32 path's, plus 3e-4 (b32 /
+128^2: the largest is ~0.53 for either).
 The 'exact' soft mode (segment distances) is held to the same bounds
 against the plain 'exact' path, and the unmasked texture mode to the
 texture bounds with every pixel counted as inside the mask.
@@ -124,6 +141,51 @@ def check_raster(stats: dict, dense_uncut: bool = False) -> None:
     _require(stats["uv_max"] <= tol["uv_max"], stats)
     _require(stats["hard_mismatch"] <= coverage_flips, stats)
     _require(stats["soft_max"] <= tol["uncut_soft" if dense_uncut else "soft"], stats)
+
+
+def sumlog_stats(sumlog, sumlog_plain, idx_plain, raster_inputs, sigmainv: float) -> dict:
+    """Compare the plain mode's sumlog (B, P) with the plain path's on the
+    covered pixels where it is well conditioned, and both with the float64
+    witness on the other covered pixels (see the module's text);
+    ``raster_inputs`` = (px, py, fvi, fz, fnz) of ``rasterize_phase1``."""
+    from .ops.rasterize import _P_CLAMP, _chunk_faces, _face_pixel_terms
+
+    px, py, fvi, fz, fnz = (x.double() for x in raster_inputs)
+    cover_term = float(np.log1p(-_P_CLAMP))  # in float64, as the terms are taken
+    to_f32_clamp = float(np.float32(_P_CLAMP)) / _P_CLAMP
+    good = torch.ones(sumlog.shape, dtype=torch.bool, device=sumlog.device)
+    witness = torch.zeros(sumlog.shape, dtype=torch.float64, device=sumlog.device)
+    chunk = _chunk_faces(*sumlog.shape)
+    for base in range(0, fvi.shape[1], chunk):
+        sl = slice(base, base + chunk)
+        _, log1mp = _face_pixel_terms(px, py, fvi[:, sl], fz[:, sl], fnz[:, sl], sigmainv)
+        good &= (((log1mp - cover_term).abs() < 1e-6) | (log1mp >= np.log(0.5))).all(-1)
+        witness += torch.log1p(torch.expm1(log1mp) * to_f32_clamp).sum(-1)
+    covered = idx_plain >= 0
+    held, rest = covered & good, covered & ~good
+    err = (sumlog.double() - sumlog_plain.double()).abs()
+    err64 = (sumlog.double() - witness).abs()
+    plain_err64 = (sumlog_plain.double() - witness).abs()
+
+    def most(x, where):
+        return float(x[where].max()) if where.any() else 0.0
+
+    return {"covered": int(covered.sum()), "held": int(held.sum()),
+            "sumlog_min_held": float(sumlog_plain[held].min()) if held.any() else 0.0,
+            "sumlog_max_abs_held": most(err, held),
+            "sumlog_max_abs_covered": most(err, covered),
+            "sumlog_max_abs64_rest": most(err64, rest),
+            "plain_max_abs64_rest": most(plain_err64, rest),
+            "sumlog_mean_abs64_rest": float(err64[rest].mean()) if rest.any() else 0.0,
+            "plain_mean_abs64_rest": float(plain_err64[rest].mean()) if rest.any() else 0.0}
+
+
+def check_sumlog(stats: dict) -> None:
+    _require(stats["held"] >= 0.05 * stats["covered"] > 0, stats)
+    _require(stats["sumlog_max_abs_held"] <= RASTER_TOL["soft"], stats)
+    for what in ("max", "mean"):
+        _require(stats[f"sumlog_{what}_abs64_rest"]
+                 <= 2.0 * stats[f"plain_{what}_abs64_rest"] + RASTER_TOL["soft"], stats)
 
 
 def texture_stats(kernel_out, plain_out, texmask) -> dict:

@@ -35,7 +35,7 @@ import torch
 from .. import resolve_device
 from ..eval.fid import calculate_fid_given_paths
 from ..eval.gifs import azimuth_sweep, distance_sweep, elevation_sweep
-from ..eval.images import read_image, save_image_grid, save_images_parallel
+from ..eval.images import read_image, resize_bicubic, save_image_grid, save_images_parallel
 from ..eval.inception import fid_weights_available, load_fid_weights
 from ..eval.metrics import mask_iou_metric, ssim
 from ..eval.reports import ResultLog, SummaryLogger
@@ -113,17 +113,16 @@ def run_test_eval(opt, rec, test_dl, dirs, epoch, device):
 
 def file_metrics(opt, dirs, device="cuda"):
     """SSIM and mask-IoU over the WRITTEN files (the JPEG or PNG round trip is
-    part of the metric) -> (mean SSIM, mean IoU).  A file must have the eval
-    size (imageSize wide, round(imageSize * ratio) high): the port does not
-    resample."""
+    part of the metric) -> (mean SSIM, mean IoU).  Each file is resampled to
+    the eval size (imageSize wide, round(imageSize * ratio) high) as the JAX
+    function does it, with Pillow's bicubic ``resize`` (``resize_bicubic``);
+    a file of that size is read as it is."""
     device = resolve_device(device)
     ori_dir, rec_dir, _, _, ori_mask_dir, rec_mask_dir = dirs
-    size = (round(opt.imageSize * opt.ratio), opt.imageSize)
+    size = (opt.imageSize, round(opt.imageSize * opt.ratio))  # (width, height)
 
     def load(path, mode):
-        arr = read_image(path, mode)
-        if arr.shape[:2] != size:
-            raise ValueError(f"{path}: {arr.shape[:2]} is not the eval size {size}")
+        arr = resize_bicubic(read_image(path, mode), size)
         return torch.as_tensor(arr, device=device)[None].float() / 255.0
 
     ssim_scores, iou_scores = [], []

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from magicmirror_torch import kernels, parity
+from magicmirror_torch.benchmarks.kernel_times import live_pairs
 from magicmirror_torch.kernels import build
 from magicmirror_torch.ops.face_rows import coeffs13, face_cull, face_rows, face_verts
 from magicmirror_torch.ops.rasterize import (_tile_overlaps, dibr_rasterization, pixel_grid,
@@ -448,3 +449,119 @@ def test_cuda_exact_render_goes_through_the_exact_and_unmasked_kernels(cuda_devi
     assert (served - rgba).abs().max() <= 1e-6
     assert all(torch.isfinite(att[k].grad).all() and att[k].grad.abs().max() > 0
                for k in ("vertices", "textures"))
+
+
+def _far_inputs(template, height, width, batch, distance, device, seed=0):
+    """bench.py's attributes with every camera at ``distance``: the farther
+    the camera, the more of the template's faces reach one 16x16 tile."""
+    ratio = height / width
+    dr = DiffRender(template, width, ratio=ratio, init_ellipsoid=2.0 if ratio != 1 else 1.0,
+                    device=device)
+    att = bench_attributes(dr.vertices_init.cpu().numpy(), batch, width, seed, height=height)
+    att["distances"][:] = distance
+    fvc, fvi, fn = dr.project(to_torch(att, device))
+    return fvi, fvc[..., 2], fn[..., 2], dr.face_uvs, fn
+
+
+def _line_kernels_match_plain(args, height, width, g_sumlog):
+    """Both 'line' kernels against their plain versions on ``args``, the
+    backward with the cotangent ``g_sumlog`` (B, H * W)."""
+    fvi, fnz = args[0], args[2]
+    out = rasterize_fused(*args, height=height, width=width)
+    parity.check_raster(parity.raster_stats(out, rasterize_fused_plain(*args, height=height,
+                                                                       width=width)))
+    G = raster_bwd(face_rows(*args).contiguous(), g_sumlog, 7000.0, height, width)
+    G_plain = soft_backward_plain(fvi, fnz, g_sumlog, 7000.0, height, width)
+    parity.check_raster_bwd(parity.raster_bwd_stats(G, G_plain, _chain(fvi, G),
+                                                    _chain(fvi, G_plain)))
+
+
+@pytest.mark.cuda
+def test_tile_that_every_face_reaches(cuda_device):
+    """The dense template seen from afar: one tile keeps thousands of faces
+    (every batch of survivors of the kernels is full), with a cotangent on
+    every pixel."""
+    height, width = 128, 64
+    args = _far_inputs(SMPL, height, width, 2, 10.0, cuda_device)
+    rows = face_rows(*args).contiguous()
+    assert live_pairs(rows, height, width, per_tile=True).max() >= 4096
+    g_sumlog = torch.randn((2, height * width), device=cuda_device,
+                           generator=torch.Generator(cuda_device).manual_seed(11))
+    kernels.reset_launches()
+    _line_kernels_match_plain(args, height, width, g_sumlog)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {**ZERO, "raster_fwd_dense": 1, "raster_bwd_dense": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,distance", [(64, 10.0), (32, 16.0)])
+def test_tile_survivors_span_passes(cuda_device, size, distance):
+    """The sphere from afar: a tile keeps more faces than one 256-face pass
+    holds, from every pass of the 1,281 rows."""
+    args = _far_inputs(SPHERE, size, size, 2, distance, cuda_device)
+    rows = face_rows(*args).contiguous()
+    assert live_pairs(rows, size, size, per_tile=True).max() > 256
+    soft = rasterize_fused(*args, height=size, width=size)[1].reshape(2, -1)
+    g = torch.randn(soft.shape, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(size))
+    _line_kernels_match_plain(args, size, size, (g * (soft - 1.0)).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,batch", [(64, 2), (128, 4)])
+def test_raster_bwd_cotangent_on_every_pixel(cuda_device, size, batch):
+    """A cotangent of sumlog that is nonzero on every pixel, the interior
+    too (where g_soft * (soft - 1) is 0), so that no tile leaves early and
+    every tile works through all its survivors.  On a covered pixel within
+    ~1e-6 of another face's edge a term weighs up to ~2e5 and turns on the
+    last bit of its edge distance and of exp: the kernel forms both as the
+    plain version does (``csrc/raster_bwd.cu``)."""
+    args, _, _ = _raster_inputs(size, batch, cuda_device, seed=size + 3)
+    g_sumlog = torch.randn((batch, size * size), device=cuda_device,
+                           generator=torch.Generator(cuda_device).manual_seed(size + 3))
+    assert (g_sumlog != 0).all()
+    _line_kernels_match_plain(args, size, size, g_sumlog)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,distance", [(128, 3.0), (64, 6.0)])
+def test_plain_mode_sumlog_where_many_faces_cover(cuda_device, size, distance):
+    """The plain mode's sumlog itself, not exp(sumlog), on the covered
+    pixels, where it sums many large terms (parity.sumlog_stats)."""
+    args = _far_inputs(SPHERE, size, size, 2, distance, cuda_device, seed=5)
+    fvi, fz, fnz = args[0], args[1], args[2]
+    idx, sumlog = raster_fwd_plain(face_rows(*args).contiguous(), 7000.0, size, size)
+    px, py = pixel_grid(size, size, cuda_device)
+    idx_p, sumlog_p = rasterize_phase1(px, py, fvi, fz, fnz, 7000.0)
+    assert (idx.long() != idx_p).sum() <= parity.RASTER_TOL["idx_frac"] * idx.numel()
+    stats = parity.sumlog_stats(sumlog, sumlog_p, idx_p, (px, py, fvi, fz, fnz), 7000.0)
+    assert stats["sumlog_min_held"] < -30.0, stats
+    parity.check_sumlog(stats)
+
+
+@pytest.mark.cuda
+def test_device_timing_moves_no_launch_count(cuda_device):
+    """``timing.device_ms`` launches K1 and K2 in its warm-up and captures
+    them in CUDA graphs, warm and cold; none of that is a launch of a run,
+    so ``kernels.LAUNCHES`` is as it was before."""
+    from magicmirror_torch.benchmarks import timing
+
+    size = 64
+    args, _, _ = _raster_inputs(size, 2, cuda_device, seed=21)
+    rows = face_rows(*args).contiguous()
+    cull = face_cull(rows)
+    g_sumlog = torch.randn((2, size * size), device=cuda_device,
+                           generator=torch.Generator(cuda_device).manual_seed(21))
+    raster_fwd(rows, 7000.0, size, size, cull=cull)
+    raster_bwd(rows, g_sumlog, 7000.0, size, size, cull)
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    assert before["raster_fwd"] >= 1 and before["raster_bwd"] >= 1
+    fwd = timing.device_ms(lambda r, k: raster_fwd(r, 7000.0, size, size, cull=k),
+                           (rows, cull), 1 << 20, kernels.LAUNCHES)
+    bwd = timing.device_ms(lambda r, k, g: raster_bwd(r, g, 7000.0, size, size, k),
+                           (rows, cull, g_sumlog), 1 << 20, kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+    assert fwd["cold_copies"] == bwd["cold_copies"] == 100
+    assert all(0.0 < t["warm_ms"] and 0.0 < t["cold_ms"] for t in (fwd, bwd))

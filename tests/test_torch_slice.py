@@ -160,7 +160,8 @@ def test_port_imports_without_jax_flax_yaml_or_pil():
                    "models.discriminators", "train", "train.optim", "train.state",
                    "train.train_step", "train.trainer", "train.em_update",
                    "train.checkpoints", "eval.metrics", "eval.images", "eval.reports",
-                   "eval.gifs", "eval.inception", "eval.fid", "benchmarks.texture_parts"):
+                   "eval.gifs", "eval.inception", "eval.fid", "benchmarks.texture_parts",
+                   "benchmarks.timing", "benchmarks.kernel_times"):
         assert f"magicmirror_torch.{module}" in names, module
     for name in names:  # and they import here too
         importlib.import_module(name)
