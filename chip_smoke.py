@@ -26,7 +26,10 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      the masked texture kernel's body by level (1, 4, 5), on the first 32
      images of dump_uv's camera sweep at 256^2 and 128^2: zeros below level
      5, level 5 the texture kernel's output bit for bit, timed by bursts of
-     100 launches (magicmirror_torch/benchmarks/texture_parts.py);
+     100 launches (magicmirror_torch/benchmarks/texture_parts.py); and the
+     texture backward's stress cases against its plain version (every
+     pixel on one texel, uv exactly 0 and 1, taps across the borders of the
+     bands of rows that the kernel's blocks zero);
   4. the serving slice of each configuration: the full-width encoder (random
      weights from a seed, BatchNorm statistics re-estimated on the smoke
      batch) serving b4 synthetic RGBA photos through Reconstructor, plus a
@@ -50,14 +53,17 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      STEPS train steps and STEPS critic updates alone at b32 / 128^2 of the
      default configuration: the device's busy share of the step, the kernel
      launches per step, and device ms by kernel group;
-  8. the trainer (train.trainer.trainer) on the default configuration at
-     b32 / 128^2 over 4 train and 2 test batches of synthetic photos, in two
-     calls into build/trainer_smoke: epochs 0-1 (artifacts, eval with FID,
-     checkpoints, the EM template update and the BatchNorm refresh after it,
-     an SWA update), then a resume from that checkpoint with SWA from epoch 0
-     (the SWA BatchNorm refresh, the eval with and without SWA); the
-     artifacts, result.txt, the checkpoint round trip and the kernel launches
-     each call must make are checked, and its times printed.
+  8. the file front end of ``python train.py``: a CUB-layout tree of 64
+     train and 16 test photos (masks as PNG, the RGB as JPEG)
+     through ``python -m magicmirror_torch.cli.train`` at the default flags
+     and --niter 1 (cli.train.main), into build/frontend_smoke: opts.yaml
+     read back equal, the loss lines, 4 steps an epoch, SWA from epoch 0
+     with its BatchNorm refresh, the eval with and without SWA, the
+     artifacts and checkpoints, and the launches of K1-K4 the run must make;
+  9. the trainer (train.trainer.trainer) resumed from that run's checkpoint
+     over the same loaders: the restore (into a fresh state first, tensor
+     by tensor), one epoch with the EM template update and the BatchNorm
+     refresh after it, the eval, the checkpoints, and the kernel launches.
 The line before the last is the kernels' JSON summary (``ms`` and
 ``library_ms`` are cold device times, ``warm_ms`` warm ones, ``plain_ms``
 CUDA events around the plain version); the last line is
@@ -65,22 +71,30 @@ CUDA events around the plain version); the last line is
 only.
 """
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
+import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
 
 from magicmirror_torch import kernels, parity  # noqa: E402
+from magicmirror_torch.cli import train as cli_train  # noqa: E402
+from magicmirror_torch.configs import flags  # noqa: E402
+from magicmirror_torch.eval.images import encode_png, save_array_image  # noqa: E402
 from magicmirror_torch.kernels import build  # noqa: E402
 from magicmirror_torch.losses import recon  # noqa: E402
 from magicmirror_torch.models.convert import init_from_seed  # noqa: E402
@@ -92,9 +106,9 @@ from magicmirror_torch.ops.rasterize import (dibr_rasterization, pixel_grid,  # 
                                              rasterize_phase1, rasterize_plain,
                                              soft_backward_autograd, soft_backward_plain)
 from magicmirror_torch.ops.sampling import (TEXTURE_PARTS_LEVELS,  # noqa: E402
-                                            texture_backward_plain, texture_bwd, texture_fwd,
-                                            texture_mapping_plain, texture_render,
-                                            texture_render_plain)
+                                            texture_backward_plain,
+                                            texture_bwd, texture_fwd, texture_mapping_plain,
+                                            texture_render, texture_render_plain)
 from magicmirror_torch.render.renderer import DiffRender  # noqa: E402
 from magicmirror_torch.render.synthetic import (bench_attributes,  # noqa: E402
                                                smooth_random, to_torch)
@@ -105,7 +119,8 @@ from magicmirror_torch.benchmarks import texture_parts as probe_bench  # noqa: E
 from magicmirror_torch.benchmarks.kernel_times import (live_pairs, raster_work,  # noqa: E402
                                                         work_bound)
 from magicmirror_torch.benchmarks.timing import burst_ms  # noqa: E402
-from magicmirror_torch.train import TrainOptions, build_trainer, sample_draws  # noqa: E402
+from magicmirror_torch.train import (TrainOptions, build_trainer, sample_draws,  # noqa: E402
+                                     train_options)
 from magicmirror_torch.train.checkpoints import CheckpointManager  # noqa: E402
 from magicmirror_torch.train.trainer import trainer as run_trainer  # noqa: E402
 from magicmirror_torch.train.train_step import (METRIC_KEYS, e_outputs,  # noqa: E402
@@ -526,6 +541,28 @@ def far_case(template, height, width, batch, distance, seed):
     return fvi, fvc[..., 2], fn[..., 2], dr.face_uvs, fn
 
 
+def texture_bwd_stress(errs):
+    """The texture backward kernel where it works hardest
+    (``parity.texture_bwd_stress``: every pixel of an image on one texel,
+    uv exactly 0 and 1, taps straddling the borders between the bands of
+    rows that the kernel's blocks zero) at b32 / 128^2, against the plain
+    version in the case's dtype (``parity.TEXTURE_BWD_STRESS``)."""
+    rows = 256 // 8  # texture_bwd.cu: 8 blocks an image share its 256 texture rows
+    for case, dtype in parity.TEXTURE_BWD_STRESS.items():
+        g, uv, tex, mask = (None if a is None else torch.as_tensor(a, device=DEV)
+                            for a in parity.texture_bwd_stress(case, 32, 128, rows, SEED + 33))
+        out = texture_bwd(g, uv, tex, mask)
+        ref = tuple(r.float() for r in texture_backward_plain(
+            *(None if a is None else a.to(dtype) for a in (g, uv, tex, mask))))
+        covered = mask if mask is not None else torch.ones_like(uv[..., 0])
+        stats = parity.texture_bwd_stats(out, ref, covered)
+        emit("parity_texture_bwd_stress", case=case, shape="b32/128^2", band_rows=rows,
+             plain_dtype=str(dtype), **stats)
+        parity.check_texture_bwd(stats)
+        name = "texture_bwd" if mask is not None else "texture_unmasked_bwd"
+        errs[name] = max(errs[name], *(float((a - b).abs().max()) for a, b in zip(out, ref)))
+
+
 def stress_parity(errs):
     """The rasterizer kernels where their tiles work hardest, each against
     its plain version at the usual tolerances: a tile that thousands of
@@ -916,27 +953,6 @@ def texture_parts_phase(size, card, errs):
                       "texture_parts_library_ms": t["level5_library_cold_ms"]}
 
 
-class PhotoLoader:
-    """Batches of ``{"images", "path"}`` as the trainer reads a loader."""
-
-    def __init__(self, batches):
-        self.batches = batches
-
-    def __iter__(self):
-        return iter(self.batches)
-
-    def __len__(self):
-        return len(self.batches)
-
-
-def photo_loader(dr, n_batches, first_seed, named_from=0, batch=32):
-    """``n_batches`` b32 batches of ``synthetic_photos``, named sNNN.png."""
-    return PhotoLoader([
-        {"images": synthetic_photos(dr, batch, first_seed + i),
-         "path": [f"s{named_from + batch * i + b:03d}.png" for b in range(batch)]}
-        for i in range(n_batches)])
-
-
 def _same_state(a, b):
     """Whether two state dicts hold equal values, tensor by tensor."""
     if isinstance(a, torch.Tensor):
@@ -965,95 +981,181 @@ def trainer_launches(opt, start_epoch, n_train, n_test):
             "raster_bwd": 2 * steps, "texture_bwd": 2 * steps}
 
 
-def trainer_phase(card):
-    """The trainer at the default configuration, full width, b32 at 128^2, in
-    two calls under the JAX package's cadence (EM runs only before
-    swa_start, so one call cannot show both EM and the SWA BatchNorm
-    refresh).  Call 1: epochs 0 and 1 (artifacts, eval, checkpoints, EM and
-    the BatchNorm refresh at epoch 0; one SWA update at epoch 1).  Call 2:
-    resumes from call 1's latest_ckpt (epoch 0) with swa_start 0: one epoch,
-    an SWA update, the SWA BatchNorm refresh, the eval with and without SWA."""
-    outf = os.path.join(ROOT, "build", "trainer_smoke")
-    shutil.rmtree(outf, ignore_errors=True)
-    dr = DiffRender(SPHERE, 128, device=DEV)
-    train = photo_loader(dr, 4, SEED + 30)
-    test = photo_loader(dr, 2, SEED + 40)
-    opt1 = TrainOptions(template_path=SPHERE, niter=1, warm_epoch=1, swa_start=1,
-                        swa_interval=1, em=1.0, em_gap=1, update_bn=True)
+def trainer_phase(card, argv, outf):
+    """The trainer's other branches on the default configuration, full
+    width, resumed from the front-end run's latest_ckpt (epoch 0, in
+    ``outf``) over the front-end's loaders, with swa_start 1 (EM runs only
+    before swa_start, and the front-end run took SWA from epoch 0): the
+    restore, one epoch with the EM template update and the BatchNorm refresh
+    after it, the artifacts, the eval and the checkpoints.  Before it, a
+    fresh train state restored from that latest_ckpt must hold, tensor by
+    tensor, what the file holds."""
+    ns = flags.build_parser().parse_args(argv)
+    train, test, noaug = cli_train.build_dataloaders(ns)
     # the cosine schedule divides by niter (in the JAX package too), so the
     # one-epoch resume takes "exp", whose rate at epoch 0 is the same lr
-    opt2 = dataclasses.replace(opt1, resume=True, niter=0, swa_start=0, scheduler="exp")
+    opt = dataclasses.replace(train_options(ns), resume=True, niter=0, swa_start=1,
+                              scheduler="exp", update_bn=True)
+    path = os.path.join(outf, "ckpts", "latest_ckpt")
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    fresh = build_trainer(opt).state
+    CheckpointManager(os.path.dirname(path)).restore("latest_ckpt", fresh)
+    fresh_equal = payload["epoch"] == 0 and _same_state(fresh.state_dict(), payload["state"])
+    template0 = fresh.template.clone()
+    del fresh, payload
+    torch.cuda.empty_cache()
 
-    calls = []
-    for call, opt in ((1, opt1), (2, opt2)):
-        timings = []
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        state = run_trainer(opt, train, test, train, outf, device=DEV, timings=timings)
+    timings = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = run_trainer(opt, train, test, noaug, outf, device=DEV, timings=timings)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    expect = trainer_launches(opt, 0, len(train), len(test))
+    with open(os.path.join(outf, "result.txt")) as fp:
+        results = fp.read().splitlines()
+    epochs = [t for t in timings if "epoch" in t]
+    restored = [t for t in timings if "restore_s" in t]
+    template_moved = float((state.template - template0).abs().max())
+    emit("trainer", card=card, shape="b32/128x128", seconds=seconds,
+         epochs=[t["epoch"] for t in epochs],
+         seconds_per_epoch=[t["train_s"] for t in epochs],
+         train_images_per_s=[t["train_images"] / t["train_s"] for t in epochs],
+         evals=[dict(e, epoch=t["epoch"]) for t in epochs for e in t["eval"]],
+         em_sweep_s=[t.get("em_s") for t in epochs],
+         em_update_bn_s=[t.get("em_update_bn_s") for t in epochs],
+         artifacts_s=[t.get("artifacts_s") for t in epochs],
+         checkpoints=[c for t in epochs for c in t["checkpoints"]], restore=restored,
+         launches=launches, expected_launches=expect, result_lines=len(results),
+         swa_n=state.swa_n, template_moved_max=template_moved, em_step=state.em_step,
+         restore_into_fresh_state_equal=fresh_equal, fid_files=eval_file_counts(outf))
+    require(launches == expect, (launches, expect))
+    require(state.swa_n == 1, state.swa_n)  # the front-end run's epoch 0, restored
+    require(fresh_equal and [t["restored_epoch"] for t in restored] == [0], restored)
+    require(template_moved > 0.0 and state.em_step < 0.1, (template_moved, state.em_step))
+    require(all("em_update_bn_s" in t for t in epochs), epochs)
+    require(eval_file_counts(outf) == EVAL_FILES, eval_file_counts(outf))
+    require(len(results) == 15 and sum("(SWA)" in ln for ln in results) == 5, results)
+    require(all(k in " ".join(results[-5:]) for k in ("recon ssim", "recon MaskIoU",
+                                                      "recon fid", "rotation fid",
+                                                      "rotate90/270 fid")), results)
+
+
+# what the front-end run (epochs 0 and 1, artifacts and eval at epoch 0) must
+# leave in its directory, and the files an eval writes for its 16 test
+# photos: one a photo, two a photo for the two rotations
+FRONTEND_ARTIFACTS = ("opts.yaml", "result.txt", "current_Xer.png", "current_Xir.png",
+                      "current_rotation.gif", "current_rotation_ele.gif",
+                      "current_rotation_dist.gif", "epoch_000_template.obj",
+                      "current_mesh_recon.obj", "ckpts/latest_ckpt", "ckpts/best_ckpt",
+                      "ckpts/best_mesh.obj")
+EVAL_FILES = {"ori": 16, "rec": 16, "inter": 32, "inter90": 32, "ori_mask": 16, "rec_mask": 16}
+
+
+def eval_file_counts(outf):
+    """The files in each of ``outf``'s fid/ directories."""
+    return {d: len(os.listdir(os.path.join(outf, "fid", d))) for d in EVAL_FILES}
+
+
+def cub_tree(root, dr, n_photos, first_seed, split, fg_range=(0.16, 0.64)):
+    """``n_photos`` of ``synthetic_photos`` as a CUB-layout split under
+    ``root``: ``<split>/c0/sNNN_<fg ratio>.png`` masks (the port's PNG
+    codec) and the RGB as ``sNNN.jpg`` (Pillow, quality 100, as
+    prepare_cub writes them).  Only photos whose foreground ratio lies
+    inside ``fg_range`` (the default ``--threshold``) are kept, so that the
+    train loader takes every one."""
+    d = os.path.join(root, split, "c0")
+    os.makedirs(d)
+    kept, seed = 0, first_seed
+    while kept < n_photos:
+        photos = synthetic_photos(dr, 32, seed).cpu().numpy()
+        seed += 1
+        for b in range(32):
+            mask = np.where(photos[b, :, :, 3] > 0.5, 255, 0).astype(np.uint8)
+            ratio = "%.2f" % (mask.mean() / 255.0)
+            if kept == n_photos or not fg_range[0] < float(ratio) < fg_range[1]:
+                continue
+            stem = os.path.join(d, f"s{kept:03d}")
+            save_array_image(photos[b, :, :, :3], stem + ".jpg", quality=100)
+            with open(f"{stem}_{ratio}.png", "wb") as fp:
+                fp.write(encode_png(mask))
+            kept += 1
+
+
+def frontend_phase(card):
+    """The file front end of ``python train.py`` on the card:
+    ``cli.train.main`` at the default flags (b32, 128^2, hr18sv2 / res34,
+    the WGAN critic) with ``--niter 1``, over a CUB-layout tree of 64 train
+    and 16 test photos (``cub_tree``) in build/frontend_smoke: opts.yaml,
+    the loaders (JPEG decode, augmentation, worker threads), and the
+    trainer, which at niter 1 runs SWA from epoch 0 (swa_start = niter -
+    100): 4 steps an epoch over 2 epochs, the SWA BatchNorm refresh, the
+    artifacts, the eval with and without SWA, the checkpoints -> the
+    kernel launches of the run."""
+    work = os.path.join(ROOT, "build", "frontend_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    dr = DiffRender(SPHERE, 128, device=DEV)
+    data = os.path.join(work, "data")
+    # both loaders of the train split take every photo (--threshold and
+    # --clean_threshold), so the EM sweep of the resume has 4 batches too
+    cub_tree(data, dr, 64, SEED + 50, "train", fg_range=(0.25, 0.49))
+    cub_tree(data, dr, 16, SEED + 60, "test")
+    del dr
+    argv = ["--name", "smoke", "--dataroot", data, "--template_path", SPHERE, "--niter", "1"]
+    timings, out, cwd = [], io.StringIO(), os.getcwd()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(out):
+            state = cli_train.main(argv, device=DEV, timings=timings)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        # both calls start at epoch 0: call 2 resumes call 1's epoch-0 checkpoint
-        expect = trainer_launches(opt, 0, len(train), len(test))
-        lines = open(os.path.join(outf, "result.txt")).read().splitlines()
-        calls.append((call, state.swa_n, timings, launches, expect, seconds, lines))
-        if call == 1:
-            template_moved = float((state.template - dr.vertices_init).abs().max())
-            em_step = state.em_step
-            # a fresh state restored from latest_ckpt holds, tensor by tensor,
-            # what the file holds: call 1's state at epoch 0, before EM
-            path = os.path.join(outf, "ckpts", "latest_ckpt")
-            payload = torch.load(path, map_location="cpu", weights_only=True)
-            fresh = build_trainer(opt1).state
-            CheckpointManager(os.path.dirname(path)).restore("latest_ckpt", fresh)
-            fresh_equal = (payload["epoch"] == 0
-                           and _same_state(fresh.state_dict(), payload["state"]))
-            del fresh, payload
-        del state
-        torch.cuda.empty_cache()
-
-    artifacts = ["current_Xer.png", "current_Xir.png", "current_rotation.gif",
-                 "current_rotation_ele.gif", "current_rotation_dist.gif",
-                 "epoch_000_template.obj", "current_mesh_recon.obj", "result.txt",
-                 "ckpts/latest_ckpt", "ckpts/best_ckpt", "ckpts/best_mesh.obj"]
-    missing = [a for a in artifacts if not os.path.isfile(os.path.join(outf, a))]
-    fid_files = {d: len(os.listdir(os.path.join(outf, "fid", d)))
-                 for d in ("ori", "rec", "inter", "inter90", "ori_mask", "rec_mask")}
-    for call, swa_n, timings, launches, expect, seconds, lines in calls:
-        epochs = [t for t in timings if "epoch" in t]
-        emit("trainer", call=call, card=card, shape="b32/128x128", seconds=seconds,
-             epochs=[t["epoch"] for t in epochs],
-             seconds_per_epoch=[t["train_s"] for t in epochs],
-             train_images_per_s=[t["train_images"] / t["train_s"] for t in epochs],
-             evals=[dict(e, epoch=t["epoch"]) for t in epochs for e in t["eval"]],
-             em_sweep_s=[t.get("em_s") for t in epochs],
-             em_update_bn_s=[t.get("em_update_bn_s") for t in epochs],
-             swa_bn_refresh_s=[t.get("swa_bn_s") for t in epochs],
-             artifacts_s=[t.get("artifacts_s") for t in epochs],
-             checkpoints=[c for t in epochs for c in t["checkpoints"]],
-             restore=[t for t in timings if "restore_s" in t],
-             launches=launches, expected_launches=expect, result_lines=len(lines), swa_n=swa_n)
-        require(launches == expect, (call, launches, expect))
-        require(swa_n == 1, (call, swa_n))
-    (_, _, _, _, _, _, lines1), (_, _, t2, _, _, _, lines2) = calls
-    checks = {"missing_artifacts": missing, "fid_files": fid_files,
-              "result_lines": [len(lines1), len(lines2)],
-              "swa_lines_call2": sum("(SWA)" in ln for ln in lines2),
-              "template_moved_max": template_moved, "em_step": em_step,
-              "restore_into_fresh_state_equal": fresh_equal,
-              "call2_restored": [t for t in t2 if "restore_s" in t],
-              "swa_bn_refresh_in_call2": any("swa_bn_s" in t for t in t2)}
-    emit("trainer_checks", **checks)
+        # the options main must have written: cli.train.prepare on a parsed
+        # copy of argv, in a directory of its own (it writes ./log/<name>)
+        os.makedirs(os.path.join(work, "expect"))
+        os.chdir(os.path.join(work, "expect"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            expect_opt = cli_train.prepare(flags.build_parser().parse_args(argv))
+    finally:
+        os.chdir(cwd)
+    outf = os.path.join(work, "log", "smoke")
+    opts_path = os.path.join(outf, "opts.yaml")
+    saved = vars(flags.load_options(argparse.Namespace(), opts_path, skip=()))
+    read_back = vars(flags.load_options(flags.build_parser().parse_args([]), opts_path, skip=()))
+    written = vars(expect_opt)
+    losses = [[float(x) for _, x in re.findall(r"(lossD|lossR): (\S+)", ln)]
+              for ln in out.getvalue().splitlines() if "lossD:" in ln]
+    expect = trainer_launches(train_options(expect_opt), 0, 4, 1)
+    with open(os.path.join(outf, "result.txt")) as fp:
+        results = fp.read().splitlines()
+    epochs = [t for t in timings if "epoch" in t]
+    missing = [a for a in FRONTEND_ARTIFACTS if not os.path.isfile(os.path.join(outf, a))]
+    fid_files = eval_file_counts(outf)
+    emit("frontend", card=card, shape="b32/128x128", argv=argv, seconds=seconds,
+         epochs=[t["epoch"] for t in epochs],
+         seconds_per_epoch=[t["train_s"] for t in epochs],
+         train_images_per_s=[t["train_images"] / t["train_s"] for t in epochs],
+         evals=[dict(e, epoch=t["epoch"]) for t in epochs for e in t["eval"]],
+         swa_bn_refresh_s=[t.get("swa_bn_s") for t in epochs],
+         artifacts_s=[t.get("artifacts_s") for t in epochs],
+         checkpoints=[c for t in epochs for c in t["checkpoints"]],
+         loss_lines=losses, launches=launches, expected_launches=expect,
+         steps=state.step, swa_n=state.swa_n, result_lines=results,
+         opts_yaml_equal=saved == written == read_back, missing_artifacts=missing,
+         fid_files=fid_files)
+    require(len(losses) == 2 and all(len(v) == 2 and all(map(math.isfinite, v))
+                                     for v in losses), losses)
+    require((state.step, state.swa_n) == (8, 2), (state.step, state.swa_n))
+    require(launches == expect, (launches, expect))
+    require(len(results) == 10 and sum("(SWA)" in ln for ln in results) == 5, results)
+    require(saved == written == read_back, (saved, written, read_back))
+    require(any("swa_bn_s" in t for t in epochs), epochs)  # SWA's BatchNorm refresh
     require(not missing, missing)
-    require(fid_files == {"ori": 64, "rec": 64, "inter": 128, "inter90": 128, "ori_mask": 64,
-                          "rec_mask": 64}, fid_files)
-    require(len(lines1) == 5 and len(lines2) == 15 and checks["swa_lines_call2"] == 5, checks)
-    require(all(k in " ".join(lines1) for k in ("recon ssim", "recon MaskIoU", "recon fid",
-                                                 "rotation fid", "rotate90/270 fid")), lines1)
-    require(template_moved > 0.0 and em_step < 0.1, checks)
-    require(fresh_equal and [t["restored_epoch"] for t in checks["call2_restored"]] == [0],
-            checks)
-    require(checks["swa_bn_refresh_in_call2"], checks)
+    require(fid_files == EVAL_FILES, fid_files)
+    return launches, argv, outf
 
 
 def main(profile_steps=0):
@@ -1095,6 +1197,7 @@ def main(profile_steps=0):
         exact_parity(size, batch, errs)
         unmasked_parity(size, batch, errs)
     stress_parity(errs)
+    texture_bwd_stress(errs)
     # the dense template: the Market shape and bench.py's, near and far cameras,
     # and the recipe's own distance range (the main path's, kept for the summary)
     dense = {(h, w, d): dense_parity(h, w, d, card, errs)
@@ -1160,10 +1263,14 @@ def main(profile_steps=0):
              **profile(_no_tf32()(lambda: update_d(trainer.state, outs, trainer.opt, draws,
                                                    3e-4, 1.0)), profile_steps))
 
-    # 8. the trainer around the step: epochs, SWA, EM, eval, FID, checkpoints
+    # 8. the file front end of python train.py: a CUB-layout tree through
+    # cli.train.main; 9. the trainer around the step: epochs, SWA, EM, eval,
+    # FID, checkpoints
     del trainers, recs
     torch.cuda.empty_cache()
-    trainer_phase(card)
+    frontend_launches, argv, outf = frontend_phase(card)
+    torch.cuda.empty_cache()
+    trainer_phase(card, argv, outf)
 
     # the kernels' summary: name -> (source, the TPU kernel it replaces, the
     # configuration whose main path launches it, where its times were taken)
@@ -1209,6 +1316,7 @@ def main(profile_steps=0):
                          if config else probe_launches.get(name, 0)),
             "launches_training": train_launches[config][name] if config else 0,
             "launches_serving": serve_launches[config][name] if config else 0,
+            "launches_frontend": frontend_launches.get(name, 0),
             "max_abs_err": errs[counted], "ms": t[f"{timed}_ms"],
             "warm_ms": t[f"{timed}_warm_ms"],
             "plain_ms": t[f"{timed}_plain_ms"], "bound_ms": t[f"{timed}_bound_ms"],

@@ -157,7 +157,7 @@ def texture_bwd(g, texcoord, textures, texmask=None):
     :func:`texture_backward_plain`.  fp32, contiguous NHWC inputs."""
     B, H, W, Ht, Wt, mask_ptr = _check_texture_args(texcoord, textures, texmask)
     build.check(g, "g", torch.float32, (B, H, W, 3))
-    d_tex = torch.zeros_like(textures)
+    d_tex = torch.empty_like(textures)  # the kernel writes every element
     d_uv = torch.empty_like(texcoord)
     build.launch("texture_bwd", g.data_ptr(), texcoord.data_ptr(), mask_ptr,
                  textures.data_ptr(), B, H, W, Ht, Wt, d_tex.data_ptr(), d_uv.data_ptr())

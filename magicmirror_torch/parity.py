@@ -199,6 +199,62 @@ def check_texture(stats: dict) -> None:
     _require(stats["nonzero_outside_mask"] == 0, stats)
 
 
+# the stress cases of the texture backward, each with the dtype of the plain
+# version it is held to (texture_bwd_stress)
+TEXTURE_BWD_STRESS = {"one_texel": torch.float64, "clip_edges": torch.float32,
+                      "band_borders": torch.float32}
+
+
+def _texel_coords(rs, n: int, shape) -> np.ndarray:
+    """Texture coordinates in (0, 1) whose texel position u * n - 0.5 lies
+    0.1 or more from a whole number: every way of rounding it (float32 with
+    or without fused multiply-adds, float64) picks the same taps."""
+    j = rs.randint(0, n - 1, shape)
+    return (j + 0.5 + rs.uniform(0.1, 0.9, shape)) / n
+
+
+def texture_bwd_stress(case: str, batch: int, size: int, rows: int, seed: int = 0):
+    """Inputs where the texture backward kernel works hardest, numpy float32:
+    (g (B, S, S, 3), uv (B, S, S, 2), textures (B, 2S, S, 3), mask (B, S, S)
+    or None for the unmasked mode).  ``one_texel``: unmasked, every pixel at
+    uv = (0, 0), the unmasked background, with a cotangent on every pixel,
+    so all of an image's pixels add into the texel (2S - 1, 0).
+    ``clip_edges``: masked, u and v each exactly 0, exactly 1 or inside, the
+    nine pairs at random pixels (taps outside the texture, the clip's
+    gradient of 1/2).  ``band_borders``: masked, the two tap rows of every
+    pixel straddle a border between two bands of ``rows`` texture rows (the
+    rows of the texture that one block of the kernel zeroes).  Hold the
+    kernel to ``texture_backward_plain`` in the case's dtype of
+    TEXTURE_BWD_STRESS: float64 for ``one_texel``, whose float32 sum of
+    16,384 terms in one texel is itself ~1e-5 off (its taps are exact in
+    both), float32 for the others, whose weights float32 rounds as the
+    kernel does (against float64 that rounding alone is ~1e-5 of d_uv)."""
+    if case not in TEXTURE_BWD_STRESS:
+        raise ValueError(f"case must be one of {TEXTURE_BWD_STRESS}, got {case!r}")
+    rs = np.random.RandomState(seed)
+    Ht, Wt = 2 * size, size
+    tex = rs.rand(batch, Ht, Wt, 3)
+    g = rs.randn(batch, size, size, 3)
+    mask = (rs.rand(batch, size, size) > 0.3).astype(np.float64)
+    shape = (batch, size, size)
+    u, v = _texel_coords(rs, Wt, shape), _texel_coords(rs, Ht, shape)
+    if case == "one_texel":
+        u, v, mask = np.zeros(shape), np.zeros(shape), None
+    elif case == "clip_edges":
+        pick = rs.randint(0, 3, (2,) + shape)  # 0, 1 or inside
+        u = np.where(pick[0] == 2, u, pick[0])
+        v = np.where(pick[1] == 2, v, pick[1])
+    else:
+        borders = np.arange(rows, Ht, rows)
+        if borders.size == 0:
+            raise ValueError(f"band_borders: no border between bands of {rows} of {Ht} rows")
+        # y = (1 - v) * Ht - 0.5 in [border - 0.9, border - 0.1]: taps border - 1, border
+        y = borders[rs.randint(0, borders.size, shape)] - rs.uniform(0.1, 0.9, shape)
+        v = 1.0 - (y + 0.5) / Ht
+    out = [g, np.stack([u, v], axis=-1), tex, mask]
+    return tuple(None if a is None else a.astype(np.float32) for a in out)
+
+
 def _rel_err(ours, ref) -> float:
     return float((ours - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
 

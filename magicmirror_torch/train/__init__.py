@@ -32,7 +32,7 @@ from .state import TrainState
 from .train_step import METRIC_KEYS, sample_draws, train_step
 
 __all__ = ["METRIC_KEYS", "PRESETS", "TrainOptions", "Trainer", "build_trainer",
-           "lr_schedule", "preset_options", "sample_draws", "train_step"]
+           "lr_schedule", "preset_options", "sample_draws", "train_options", "train_step"]
 
 
 @dataclasses.dataclass
@@ -121,6 +121,34 @@ def unported_train_options(opt: TrainOptions) -> list[str]:
         if getattr(opt, flag) > 0:
             unported.append(f"{flag}={getattr(opt, flag)}")
     return unported
+
+
+# the flags of ``configs.flags.build_parser`` that are not TrainOptions: the
+# CLI's own (the data, the loaders, the run's directory and process), read
+# by ``cli.train``; and those that the JAX package's step reads nowhere or
+# that answer to the TPU runtime (``hard_range`` only with ``hard``, which
+# is not ported), accepted and ignored
+CLI_FLAGS = ("name", "dataroot", "workers", "prefetch_factor", "threshold", "clean_threshold",
+             "outf", "process_index", "process_count")
+IGNORED_FLAGS = ("configs_yml", "category", "cuda", "start_epoch", "romp", "swa_lr",
+                 "hard_range", "raster_backend")
+
+
+def train_options(namespace) -> TrainOptions:
+    """``TrainOptions`` from the parsed flags (``configs.flags``): its own
+    fields taken as they are, the CLI's flags and the ignored ones left out;
+    a flag of no such kind, or a setting outside the port
+    (:func:`unported_train_options`), raises."""
+    values = vars(namespace)
+    fields = {f.name for f in dataclasses.fields(TrainOptions)}
+    unknown = sorted(set(values) - fields - set(CLI_FLAGS) - set(IGNORED_FLAGS))
+    if unknown:
+        raise ValueError(f"flags the port does not know: {', '.join(unknown)}")
+    opt = TrainOptions(**{k: v for k, v in values.items() if k in fields})
+    unported = unported_train_options(opt)
+    if unported:
+        raise NotImplementedError(f"options outside the port: {', '.join(unported)}")
+    return opt
 
 
 class Trainer:

@@ -2,8 +2,12 @@
 port side by side on the CPU, from the same weights, photos and draws (not a
 test: run it by hand).
 
-    JAX_PLATFORMS=cpu python tests/loss_curves.py market 24
-    JAX_PLATFORMS=cpu python tests/loss_curves.py default 24
+    JAX_PLATFORMS=cpu python tests/loss_curves.py market 24 [THREADS]
+    JAX_PLATFORMS=cpu python tests/loss_curves.py default 24 [THREADS]
+
+THREADS (default 4) is torch's intra-op thread count: at 1 the port's CPU
+run repeats bit for bit, at 4 its threaded reductions sum in an order that
+varies from run to run.
 
 The configurations are tests/test_torch_renderer_configs.py's at 64x32 /
 32^2 with the tiny encoders and dropout off: ``market`` (``MARKET_DEFAULTS``
@@ -37,7 +41,6 @@ from magicmirror_torch.render.synthetic import (bench_attributes, smooth_random,
 from test_torch_train_step import _draws  # noqa: E402
 from torch_parity import SPHERE, as_numpy_tree, flax_shapes, random_variables, t  # noqa: E402
 
-torch.set_num_threads(4)
 C.CONFIGS["default"] = dict(template_path=SPHERE)
 
 
@@ -108,4 +111,5 @@ def main(config, steps):
 
 
 if __name__ == "__main__":
+    torch.set_num_threads(int(sys.argv[3]) if len(sys.argv) > 3 else 4)
     main(sys.argv[1], int(sys.argv[2]) if len(sys.argv) > 2 else 24)

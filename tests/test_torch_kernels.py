@@ -237,6 +237,59 @@ def test_texture_bwd_kernel_matches_plain(cuda_device):
         out, texture_backward_plain(g, uv, tex, mask), mask))
 
 
+@pytest.mark.parametrize("case", parity.TEXTURE_BWD_STRESS)
+def test_texture_bwd_stress_inputs(case):
+    """The stress inputs are what they claim (on the CPU): float32 and
+    float64 put every pixel's taps on the same texels; one_texel puts every
+    pixel on the texel (2S - 1, 0); clip_edges holds u and v at exactly 0
+    and 1; band_borders straddles a border of 8-row bands with every
+    pixel."""
+    g, uv, tex, mask = parity.texture_bwd_stress(case, 2, 32, 8, seed=3)
+    Ht, Wt = tex.shape[1], tex.shape[2]
+
+    def taps(uv, dtype):
+        u = torch.as_tensor(uv[..., 0]).to(dtype).clamp(0, 1)
+        v = torch.as_tensor(uv[..., 1]).to(dtype).clamp(0, 1)
+        x = ((u * 2 - 1 + 1) * Wt - 1) * 0.5
+        y = ((-(v * 2 - 1) + 1) * Ht - 1) * 0.5
+        return torch.floor(x).long(), torch.floor(y).long()
+
+    (x32, y32), (x64, y64) = taps(uv, torch.float32), taps(uv, torch.float64)
+    assert torch.equal(x32, x64) and torch.equal(y32, y64)
+    assert (mask is None) == (case == "one_texel")
+    if case == "one_texel":
+        assert (x32 == -1).all() and (y32 == Ht - 1).all() and (g != 0).all()
+    elif case == "clip_edges":
+        for c in (0, 1):
+            for value in (0.0, 1.0):
+                assert (uv[..., c] == value).sum() > 100
+    else:
+        assert ((y32 + 1) % 8 == 0).all() and (y32 >= 7).all() and (y32 + 1 < Ht).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", parity.TEXTURE_BWD_STRESS)
+def test_texture_bwd_stress_cases(cuda_device, case):
+    """The texture backward kernel where it works hardest
+    (``parity.texture_bwd_stress``) at b32 / 128^2, against the plain version
+    in the case's dtype (``parity.TEXTURE_BWD_STRESS``); the band borders are
+    those between the 32 rows that each of the 8 blocks of an image zeroes
+    (``csrc/texture_bwd.cu``)."""
+    g, uv, tex, mask = (None if a is None else torch.as_tensor(a, device=cuda_device)
+                        for a in parity.texture_bwd_stress(case, 32, 128, 256 // 8, seed=11))
+    key = "texture_bwd" if mask is not None else "texture_unmasked_bwd"
+    count = kernels.LAUNCHES[key]
+    out = texture_bwd(g, uv, tex, mask)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[key] == count + 1
+    dtype = parity.TEXTURE_BWD_STRESS[case]
+    ref = texture_backward_plain(*(None if a is None else a.to(dtype)
+                                   for a in (g, uv, tex, mask)))
+    covered = mask if mask is not None else torch.ones_like(uv[..., 0])
+    parity.check_texture_bwd(parity.texture_bwd_stats(out, tuple(r.float() for r in ref),
+                                                      covered))
+
+
 @pytest.mark.cuda
 def test_cuda_backward_goes_through_both_backward_kernels(cuda_device):
     """The render's backward on the card launches each backward kernel once,

@@ -161,7 +161,9 @@ def test_port_imports_without_jax_flax_yaml_or_pil():
                    "train.train_step", "train.trainer", "train.em_update",
                    "train.checkpoints", "eval.metrics", "eval.images", "eval.reports",
                    "eval.gifs", "eval.inception", "eval.fid", "benchmarks.texture_parts",
-                   "benchmarks.timing", "benchmarks.kernel_times"):
+                   "benchmarks.timing", "benchmarks.kernel_times", "data", "data.base",
+                   "data.cub", "data.loader", "configs", "configs.flags", "cli",
+                   "cli.train"):
         assert f"magicmirror_torch.{module}" in names, module
     for name in names:  # and they import here too
         importlib.import_module(name)
