@@ -63,7 +63,22 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
   9. the trainer (train.trainer.trainer) resumed from that run's checkpoint
      over the same loaders: the restore (into a fresh state first, tensor
      by tensor), one epoch with the EM template update and the BatchNorm
-     refresh after it, the eval, the checkpoints, and the kernel launches.
+     refresh after it, the eval, the checkpoints, and the kernel launches;
+ 10. the three published recipes (docs/RECIPES.md: CUB, Market-HQ, ATR at
+     160x96; --bg --hard, b48) through their CLIs (cli.train,
+     cli.train_market, cli.train_atr2) at their own flags but --name,
+     --dataroot and --niter 1, each over a tree of its dataset's layout
+     written into build/recipes_smoke (96 train photos, 48 for CUB, and 16
+     test photos: the template under random textures over a random
+     background; the ATR split lists of the tree are read through
+     ``data.atr._LIST_DIR``, pointed at them for the run): loss lines,
+     opts.yaml, steps, artifacts, fid/ files, the kernel launches (three
+     renders a step with the hard view, K2 and K4 where the step's
+     train_shape leaves a gradient), the trained encoder's background; then
+     serving and the train step of each recipe at b48 (fresh model), timed.
+Phase 3 also holds K1-K4 at the recipes' shapes at b48 (128^2, 128x64,
+160x96) against their plain versions, and phase 5 one step of the Market
+recipe at b4, 128x64, on the card against the CPU.
 The line before the last is the kernels' JSON summary (``ms`` and
 ``library_ms`` are cold device times, ``warm_ms`` warm ones, ``plain_ms``
 CUDA events around the plain version); the last line is
@@ -93,10 +108,16 @@ if not torch.cuda.is_available():
 
 from magicmirror_torch import kernels, parity  # noqa: E402
 from magicmirror_torch.cli import train as cli_train  # noqa: E402
+from magicmirror_torch.cli import train_atr2 as cli_train_atr2  # noqa: E402
+from magicmirror_torch.cli import train_market as cli_train_market  # noqa: E402
 from magicmirror_torch.configs import flags  # noqa: E402
-from magicmirror_torch.eval.images import encode_png, save_array_image  # noqa: E402
+from magicmirror_torch.configs.recipes import CLI_DEFAULTS, RECIPES, recipe_flags  # noqa: E402
+from magicmirror_torch.data import atr as atr_data  # noqa: E402
+from magicmirror_torch.eval.images import encode_png, save_array_image, to_uint8  # noqa: E402
 from magicmirror_torch.kernels import build  # noqa: E402
 from magicmirror_torch.losses import recon  # noqa: E402
+from magicmirror_torch.models.attribute_encoder import (CAMERA_FROZEN,  # noqa: E402
+                                                       SHAPE_FROZEN, TEXTURE_FROZEN)
 from magicmirror_torch.models.convert import init_from_seed  # noqa: E402
 from magicmirror_torch.ops.face_rows import (DENSE_THRESHOLD,  # noqa: E402
                                              coeffs13, face_cull, face_rows)
@@ -105,6 +126,7 @@ from magicmirror_torch.ops.rasterize import (dibr_rasterization, pixel_grid,  # 
                                              rasterize_fused, rasterize_fused_plain,
                                              rasterize_phase1, rasterize_plain,
                                              soft_backward_autograd, soft_backward_plain)
+from magicmirror_torch.ops.shading import spherical_harmonic_lighting  # noqa: E402
 from magicmirror_torch.ops.sampling import (TEXTURE_PARTS_LEVELS,  # noqa: E402
                                             texture_backward_plain,
                                             texture_bwd, texture_fwd, texture_mapping_plain,
@@ -122,6 +144,7 @@ from magicmirror_torch.benchmarks.timing import burst_ms  # noqa: E402
 from magicmirror_torch.train import (TrainOptions, build_trainer, sample_draws,  # noqa: E402
                                      train_options)
 from magicmirror_torch.train.checkpoints import CheckpointManager  # noqa: E402
+from magicmirror_torch.train.trainer import _train_shape_policy  # noqa: E402
 from magicmirror_torch.train.trainer import trainer as run_trainer  # noqa: E402
 from magicmirror_torch.train.train_step import (METRIC_KEYS, e_outputs,  # noqa: E402
                                                 running_statistics, update_d, update_e)
@@ -142,7 +165,8 @@ CONFIGS = {
                    "texture_unmasked_bwd": 2}),
 }
 # train steps at b32 per configuration (a step of "cub_exact" takes seconds:
-# its silhouette backward is autograd of the plain phase 1)
+# its silhouette backward is autograd of the plain phase 1; market_smpl's loss
+# falls slowly, ROADMAP §3.2: 12 steps fell 1.1%, too close to the check)
 TRAIN_STEPS = {"default": 12, "market_smpl": 24, "cub_exact": 8}
 T0 = time.perf_counter()
 
@@ -441,18 +465,20 @@ def unmasked_parity(size, batch, errs):
         *(float((a - b).abs().max()) for a, b in zip(kernel_out, plain_out)))
 
 
-def backward_parity(size, batch, args, textures, fwd_out, errs):
+def backward_parity(size, batch, args, textures, fwd_out, errs, height=None):
     """The backward kernels against their plain versions on the card's own
     forward outputs: with a random cotangent, and with the cotangent a
     reconstruction loss against another render produces; at b4 the whole
-    backward of both autograd Functions against autograd of the plain path."""
-    shape = f"b{batch}/{size}^2"
+    backward of both autograd Functions against autograd of the plain path.
+    ``height``: a render taller than ``size`` (raster_case's)."""
+    H, W = height or size, size
+    shape = f"b{batch}/{size}^2" if H == W else f"b{batch}/{H}x{W}"
     fvi, _, fnz = args[0], args[1], args[2]
     _, soft, uv, _, hard = fwd_out
     rows = face_rows(*args).contiguous()
     gen = torch.Generator(device=DEV).manual_seed(SEED + size)
-    target, _ = raster_case(size, batch, SEED + size + 1)
-    target_soft = rasterize_fused(*target, height=size, width=size)[1]
+    target, _ = raster_case(size, batch, SEED + size + 1, height=H)
+    target_soft = rasterize_fused(*target, height=H, width=W)[1]
     leaf = soft.detach().requires_grad_(True)
     pred = torch.cat([torch.ones_like(leaf)[..., None].expand(-1, -1, -1, 3), leaf[..., None]], -1)
     gt = torch.cat([torch.ones_like(pred[..., :3]), target_soft[..., None]], -1)
@@ -461,14 +487,14 @@ def backward_parity(size, batch, args, textures, fwd_out, errs):
                   "recon_data": leaf.grad}
     for what, g_soft in cotangents.items():
         g_sumlog = (g_soft * (soft - 1.0)).reshape(batch, -1).contiguous()
-        G = raster_bwd(rows, g_sumlog, 7000.0, size, size)
-        G_plain = soft_backward_plain(fvi, fnz, g_sumlog, 7000.0, size, size)
+        G = raster_bwd(rows, g_sumlog, 7000.0, H, W)
+        G_plain = soft_backward_plain(fvi, fnz, g_sumlog, 7000.0, H, W)
         stats = parity.raster_bwd_stats(G, G_plain, chain_to_vertices(fvi, G),
                                         chain_to_vertices(fvi, G_plain))
         emit("parity_raster_bwd", shape=shape, cotangent=what, **stats)
         parity.check_raster_bwd(stats)
         errs["raster_bwd"] = max(errs["raster_bwd"], float((G - G_plain).abs().max()))
-    g_tex = torch.randn((batch, size, size, 3), device=DEV, generator=gen)
+    g_tex = torch.randn((batch, H, W, 3), device=DEV, generator=gen)
     kernel_out = texture_bwd(g_tex, uv, textures, hard)
     plain_out = texture_backward_plain(g_tex, uv, textures, hard)
     tstats = parity.texture_bwd_stats(kernel_out, plain_out, hard)
@@ -483,7 +509,7 @@ def backward_parity(size, batch, args, textures, fwd_out, errs):
     grads = []
     for fn in (rasterize_fused, rasterize_fused_plain):
         leaves = [a.detach().requires_grad_(True) for a in args]
-        _, soft_, uv_, normal_, _ = fn(*leaves, height=size, width=size)
+        _, soft_, uv_, normal_, _ = fn(*leaves, height=H, width=W)
         ((soft_ * ws[0]).sum() + (uv_ * ws[1]).sum() + (normal_ * ws[2]).sum()).backward()
         grads.append((leaves[0].grad, leaves[4].grad))
     rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads)]
@@ -613,6 +639,34 @@ def stress_parity(errs):
     require(stats["sumlog_min_held"] < -30.0, stats)
 
 
+# the render shapes of the three published recipes at their batch, b48: CUB
+# 128^2, Market 128x64, ATR 160x96 (10 x 6 tiles of 16, not a power of two)
+RECIPE_SHAPES = ((128, 128), (128, 64), (160, 96))
+
+
+def recipe_shape_parity(errs):
+    """K1-K4 at the recipes' render shapes at b48 against their plain
+    versions: the fused forward, the masked texture sampler on its outputs,
+    and the two backward kernels (backward_parity)."""
+    B = 48
+    for H, W in RECIPE_SHAPES:
+        shape = f"b{B}/{H}x{W}"
+        args, textures = raster_case(W, B, SEED + H + W, height=H)
+        out = raster_fwd(face_rows(*args).contiguous(), 7000.0, H, W)
+        stats = parity.raster_stats(out, rasterize_fused_plain(*args, height=H, width=W))
+        emit("parity_raster", shape=shape, **stats)
+        parity.check_raster(stats)
+        errs["raster_fwd"] = max(errs["raster_fwd"], stats["soft_max"], stats["normal_max"],
+                                 stats["uv_max"])
+        _, _, uv, _, hard = out
+        tstats = parity.texture_stats(texture_fwd(uv, textures, hard),
+                                      texture_render_plain(uv, textures, hard), hard)
+        emit("parity_texture", shape=shape, **tstats)
+        parity.check_texture(tstats)
+        errs["texture_fwd"] = max(errs["texture_fwd"], tstats["max_abs"])
+        backward_parity(W, B, args, textures, out, errs, height=H)
+
+
 VIEWS = ("Xer", "Xir", "Xir2", "Xer90", "Xer270")  # the eval step's renders
 
 
@@ -720,13 +774,13 @@ def serving_slice(config):
     return launches, rec, dr, dr_cpu, photos
 
 
-def train_step_gpu_vs_cpu(dr, dr_cpu, photos):
-    """Phase 5 (a), default configuration: one step at b4 on the card against
-    the same step on the CPU: the same weights (drawn on the CPU from the
-    seed), BatchNorm statistics, photos and draws; dropout off."""
-    S = dr.image_size
+def train_step_gpu_vs_cpu(dr, dr_cpu, photos, topt=None, config="default"):
+    """Phase 5 (a): one step at b4 on the card against the same step on the
+    CPU: the same weights (drawn on the CPU from the seed), BatchNorm
+    statistics, photos and draws; dropout off.  ``topt``: the options of
+    ``config`` (the defaults when None)."""
     lpl = dr.vertices_laplacian_matrix
-    topt = TrainOptions(template_path=SPHERE, droprate="0,0,0")
+    topt = topt or TrainOptions(template_path=SPHERE, droprate="0,0,0")
     on_card, on_cpu = build_trainer(topt), build_trainer(topt, device="cpu")
     estimate_bn_stats(on_card.state.netE, [photos], dr.vertices_init, lpl)
     on_cpu.state.netE.load_state_dict(on_card.state.netE.state_dict())
@@ -758,9 +812,10 @@ def train_step_gpu_vs_cpu(dr, dr_cpu, photos):
     rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), floor.get(k, 1e-12))
            for k in METRIC_KEYS if k.startswith(("loss", "gnorm"))}
     rstats = parity.render_stats([Xer_cpu, Xir_cpu], [Xer, Xir])
-    emit("train_step_gpu_vs_cpu", shape=f"b{photos.shape[0]}/{S}^2", card=m_card, cpu=m_cpu,
-         rel=rel, launches=one_step, **rstats)
-    require({k: v for k, v in one_step.items() if v} == CONFIGS["default"][3], one_step)
+    emit("train_step_gpu_vs_cpu", config=config, shape=shape_of(dr, photos.shape[0]),
+         card=m_card, cpu=m_cpu, rel=rel, launches=one_step, **rstats)
+    expect = step_launches(topt, 0)
+    require({k: v for k, v in one_step.items() if v} == expect, (one_step, expect))
     require(all(torch.isfinite(torch.tensor(list(m_card.values())))), m_card)
     # float32 on both sides through two train-mode passes of a 56M-parameter
     # encoder and their backward; the gradient norms sum 56M squares
@@ -964,21 +1019,44 @@ def _same_state(a, b):
     return a == b
 
 
+def step_launches(opt, train_shape):
+    """The kernel launches of one train step of ``opt`` (sphere.obj, 'line')
+    at ``train_shape``: each render launches K1 and K3; K2 where its
+    geometry takes a gradient (the shape, or the encoder's camera, trains)
+    and K4 where its uv or its textures take one.  The interpolated view's
+    camera is drawn; the hard view's azimuth is drawn, its elevation,
+    distance and bias are the encoder's."""
+    shape, camera, texture = (train_shape not in frozen
+                              for frozen in (SHAPE_FROZEN, CAMERA_FROZEN, TEXTURE_FROZEN))
+    geometry = [shape or camera]  # Xer
+    if opt.lambda_ic > 0:
+        geometry.append(shape)  # Xir
+    if opt.hard:
+        geometry.append(shape or camera)  # Xer90
+    out = {"raster_fwd": len(geometry), "texture_fwd": len(geometry),
+           "raster_bwd": sum(geometry), "texture_bwd": sum(g or texture for g in geometry)}
+    return {k: v for k, v in out.items() if v}
+
+
 def trainer_launches(opt, start_epoch, n_train, n_test):
-    """The kernel launches a ``trainer`` call must make on the default
-    configuration: two renders with their backward a step, one render a
-    sweep frame of the artifact epochs, five renders an eval batch."""
+    """The kernel launches a ``trainer`` call must make (sphere.obj,
+    'line'): ``n_train`` steps an epoch (step_launches at the trainer's
+    train_shape policy), one render a sweep frame of the artifact epochs,
+    five renders an eval batch (``n_test`` batches)."""
     epochs = range(start_epoch, opt.niter + 1)
     lo, hi = (int(float(v)) for v in opt.elev_range.split("~"))
     dlo, dhi = (int(float(v)) for v in opt.dist_range.split("~"))
     frames = len(range(-int(opt.azi_scope / 2), int(opt.azi_scope / 2), 10)) + len(
         range(lo, hi, 10)) + len(range(dlo, dhi + 1))
-    steps = len(epochs) * n_train
     renders = (sum(frames for e in epochs if e % 10 == 0)
                + sum(5 * n_test * (2 if opt.swa and e >= opt.swa_start else 1)
                      for e in epochs if e % 20 == 0))
-    return {"raster_fwd": 2 * steps + renders, "texture_fwd": 2 * steps + renders,
-            "raster_bwd": 2 * steps, "texture_bwd": 2 * steps}
+    total = {"raster_fwd": renders, "texture_fwd": renders}
+    for _ in epochs:
+        for it in range(n_train):
+            for k, v in step_launches(opt, _train_shape_policy(opt, it)).items():
+                total[k] = total.get(k, 0) + v
+    return {k: v for k, v in total.items() if v}
 
 
 def trainer_phase(card, argv, outf):
@@ -1158,6 +1236,248 @@ def frontend_phase(card):
     return launches, argv, outf
 
 
+def recipe_photos(dr, batch, seed, elev_range, distances):
+    """RGBA photos for the recipes: the template under smooth random
+    textures at bench.py's cameras (the elevations mapped onto
+    ``elev_range``, distances U(``distances``)) over a smooth random
+    background in [0.1, 0.9], so that the background encoder has something to
+    fit.  Rendered over that background (``no_mask``), divided by each
+    image's SH coefficient at a zero normal so that it shows as drawn."""
+    H, W = dr.render_height, dr.render_width
+    att = bench_attributes(dr.vertices_init.cpu().numpy(), batch, W, seed, height=H)
+    lo, hi = (float(v) for v in elev_range.split("~"))
+    att["elevations"] = (lo + (hi - lo) * att["elevations"] / 30.0).astype("float32")
+    att["distances"] = np.random.RandomState(seed).uniform(*distances, batch).astype("float32")
+    att["textures"] = smooth_random((batch, 2 * H, W, 3), seed)
+    att = to_torch(att, DEV)
+    coef = spherical_harmonic_lighting(torch.zeros((batch, 1, 1, 3), device=DEV), att["lights"])
+    bg = 0.1 + 0.8 * smooth_random((batch, H, W, 3), seed + 7919)
+    att["bg"] = torch.as_tensor(bg, device=DEV) / coef[..., None]
+    with torch.no_grad():
+        return dr.render(no_mask=True, **att)[0]
+
+
+def recipe_photo_files(dr, n, seed, elev_range, distances, fg_range):
+    """``n`` recipe photos whose foreground ratio lies inside ``fg_range``
+    -> [(rgb (H, W, 3) uint8, mask (H, W) uint8, the ratio as "%.2f")]."""
+    out, first = [], seed
+    while len(out) < n:
+        require(seed < first + 20, ("too few photos inside", fg_range, len(out)))
+        photos = recipe_photos(dr, 32, seed, elev_range, distances).cpu().numpy()
+        seed += 1
+        for b in range(32):
+            mask = np.where(photos[b, :, :, 3] > 0.5, 255, 0).astype(np.uint8)
+            ratio = "%.2f" % (mask.mean() / 255.0)
+            if len(out) < n and fg_range[0] < float(ratio) < fg_range[1]:
+                out.append((to_uint8(photos[b, :, :, :3]), mask, ratio))
+    return out
+
+
+def recipe_tree(layout, root, train, test):
+    """The photos as a tree of the dataset's layout under ``root`` ->
+    (dataroot, the directory of the ATR split lists or None).  ``cub``:
+    ``{train,test}/c0/sNNN.jpg`` with ``sNNN_<ratio>.png`` masks;
+    ``market``: ``seg_hmr/{train_all,query}/0001/sNNN_<ratio>.png`` masks with
+    the RGB as PNG at the same place under ``pytorch``; ``atr``:
+    ``Seg/<name>_<ratio>.png`` masks, ``JPEGImages/<name>.jpg`` and the
+    split lists ``lists/ATR_{train,test}.txt``."""
+    def write_png(arr, path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as fp:
+            fp.write(encode_png(arr))
+
+    def write_jpeg(arr, path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        save_array_image(arr, path, quality=100)
+
+    splits = (("train", train), ("test", test))
+    if layout == "cub":
+        for split, photos in splits:
+            for i, (rgb, mask, ratio) in enumerate(photos):
+                stem = os.path.join(root, split, "c0", f"s{i:03d}")
+                write_jpeg(rgb, stem + ".jpg")
+                write_png(mask, f"{stem}_{ratio}.png")
+        return root, None
+    if layout == "market":
+        for split, photos in (("train_all", train), ("query", test)):
+            for i, (rgb, mask, ratio) in enumerate(photos):
+                write_png(rgb, os.path.join(root, "pytorch", split, "0001", f"s{i:03d}.png"))
+                write_png(mask, os.path.join(root, "seg_hmr", split, "0001",
+                                             f"s{i:03d}_{ratio}.png"))
+        return os.path.join(root, "seg_hmr"), None
+    lists = os.path.join(root, "lists")
+    os.makedirs(lists)
+    for split, photos in splits:
+        names = []
+        for i, (rgb, mask, ratio) in enumerate(photos):
+            write_jpeg(rgb, os.path.join(root, "JPEGImages", f"{split}{i:03d}.jpg"))
+            names.append(f"{split}{i:03d}_{ratio}.png")
+            write_png(mask, os.path.join(root, "Seg", names[-1]))
+        with open(os.path.join(lists, f"ATR_{split}.txt"), "w") as fp:
+            fp.write("\n".join(names) + "\n")
+    return os.path.join(root, "Seg"), lists
+
+
+# the published recipes' runs: name -> (the CLI's module, the tree's layout,
+# train photos (two steps an epoch at b48: CUB serves each photo twice), test
+# photos, camera distances that put most photos' foreground inside both
+# train thresholds)
+RECIPE_RUNS = {
+    "recipe_cub": (cli_train, "cub", 48, 16, (2.9, 3.9)),
+    "recipe_market": (cli_train_market, "market", 96, 16, (2.9, 3.3)),
+    "recipe_atr2": (cli_train_atr2, "atr", 96, 16, (3.6, 4.2)),
+}
+
+
+def recipe_phase(name, card):
+    """One published recipe through its CLI on the card, as its command line
+    has it (docs/RECIPES.md) but for --name, --dataroot and --niter 1, over
+    a tree of its dataset's layout that this writes into
+    build/recipes_smoke/<name> (its ``./template`` a link to the repo's).
+    The ATR tree's split lists are read through ``data.atr._LIST_DIR``,
+    which this points at them for the run.  Checks the loss lines,
+    opts.yaml, the steps, the artifacts and fid/ files, the kernel launches
+    of the run (three renders a step with the hard view), and the background
+    of the trained encoder; then times serving and the train step at b48
+    with a fresh model of the recipe -> the run's kernel launches."""
+    cli_mod, layout, n_train, n_test, distances = RECIPE_RUNS[name]
+    recipe = recipe_flags(name)
+    work = os.path.join(ROOT, "build", "recipes_smoke", name)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    os.symlink(os.path.join(ROOT, "template"), os.path.join(work, "template"))
+    W = recipe["imageSize"]
+    dr = DiffRender(SPHERE, W, ratio=recipe["ratio"], init_ellipsoid=recipe["ellipsoid"],
+                    device=DEV)
+    H = dr.render_height
+    # inside the train and the clean thresholds: both train loaders take every photo
+    (a, b), (c, d) = ((float(v) for v in recipe[k].split(","))
+                      for k in ("threshold", "clean_threshold"))
+    fg_range = (max(a, c), min(b, d))
+    t0 = time.perf_counter()
+    train = recipe_photo_files(dr, n_train, SEED + 100, recipe["elev_range"], distances,
+                               fg_range)
+    test = recipe_photo_files(dr, n_test, SEED + 200, recipe["elev_range"], distances,
+                              fg_range)
+    dataroot, lists = recipe_tree(layout, os.path.join(work, "data"), train, test)
+    tree_s = time.perf_counter() - t0
+    argv = list(RECIPES[name][1])
+    argv[argv.index("--name") + 1] = "smoke"
+    argv += ["--dataroot", dataroot, "--niter", "1"]
+
+    list_dir = atr_data._LIST_DIR
+    if lists:
+        atr_data._LIST_DIR = lists
+    timings, out, cwd = [], io.StringIO(), os.getcwd()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(out):
+            state = cli_mod.main(argv, device=DEV, timings=timings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        os.makedirs(os.path.join(work, "expect"))
+        os.chdir(os.path.join(work, "expect"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            expect_opt = cli_train.prepare(
+                flags.build_parser(CLI_DEFAULTS[RECIPES[name][0]]).parse_args(argv))
+    finally:
+        os.chdir(cwd)
+        atr_data._LIST_DIR = list_dir
+    outf = os.path.join(work, "log", "smoke")
+    opts_path = os.path.join(outf, "opts.yaml")
+    saved = vars(flags.load_options(argparse.Namespace(), opts_path, skip=()))
+    written = vars(expect_opt)
+    opt = train_options(expect_opt)
+    steps = (2 if layout == "cub" else 1) * n_train // opt.batchSize
+    expect = trainer_launches(opt, 0, steps, 1)
+    losses = [[float(x) for _, x in re.findall(r"(lossD|lossR): (\S+)", ln)]
+              for ln in out.getvalue().splitlines() if "lossD:" in ln]
+    with open(os.path.join(outf, "result.txt")) as fp:
+        results = fp.read().splitlines()
+    missing = [a for a in FRONTEND_ARTIFACTS if not os.path.isfile(os.path.join(outf, a))]
+    fid_files = eval_file_counts(outf)
+    photos = torch.as_tensor(np.stack([np.concatenate([rgb, mask[..., None]], -1)
+                                       for rgb, mask, _ in train[:opt.batchSize]]),
+                             device=DEV).float() / 255.0
+    bg = Reconstructor(state.netE, dr, opt, template=state.template).encode(photos)["bg"]
+    epochs = [t for t in timings if "epoch" in t]
+    emit("recipe", config=name, card=card, shape=shape_of(dr, opt.batchSize), argv=argv,
+         tree_s=tree_s, seconds=seconds, epochs=[t["epoch"] for t in epochs],
+         seconds_per_epoch=[t["train_s"] for t in epochs],
+         train_images_per_s=[t["train_images"] / t["train_s"] for t in epochs],
+         evals=[dict(e, epoch=t["epoch"]) for t in epochs for e in t["eval"]],
+         artifacts_s=[t.get("artifacts_s") for t in epochs], loss_lines=losses,
+         launches=launches, expected_launches=expect, steps=state.step, swa_n=state.swa_n,
+         opts_yaml_equal=saved == written, missing_artifacts=missing, fid_files=fid_files,
+         bg_shape=list(bg.shape))
+    require(len(losses) == 2 and all(len(v) == 2 and all(map(math.isfinite, v))
+                                     for v in losses), losses)
+    require((state.step, state.swa_n) == (2 * steps, 2), (state.step, state.swa_n))
+    require(launches == expect, (launches, expect))
+    require(len(results) == 10 and sum("(SWA)" in ln for ln in results) == 5, results)
+    require(saved == written, (saved, written))
+    require(not missing, missing)
+    require(fid_files == EVAL_FILES, fid_files)
+    require(tuple(bg.shape) == (opt.batchSize, H, W, 3) and bool(torch.isfinite(bg).all()),
+            bg.shape)
+    del state, bg
+    torch.cuda.empty_cache()
+
+    # serving and the train step of the recipe at b48, a fresh model
+    topt = preset_options(TrainOptions, name, template_path=SPHERE)
+    trainer = build_trainer(topt)
+    tdr = trainer.diff_render
+    estimate_bn_stats(trainer.state.netE, [photos], tdr.vertices_init,
+                      tdr.vertices_laplacian_matrix)
+    rec = Reconstructor(trainer.state.netE, tdr, topt)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    att = rec.encode(photos)
+    serving = {"encode_ms": cuda_ms(lambda: rec.encode(photos), iters=10),
+               "render_ms": cuda_ms(lambda: tdr.render(**att), iters=10),
+               "step_ms": cuda_ms(lambda: rec(photos, generator=gen), iters=10)}
+    serving["images_per_s"] = photos.shape[0] * 1000.0 / serving["step_ms"]
+    kernels.reset_launches()
+    trainer.step(photos, 3e-4, 3e-4, train_shape=0)
+    torch.cuda.synchronize()
+    one_step = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    torch.cuda.reset_peak_memory_stats()
+    training = training_timing(trainer, tdr, photos, reps=4)
+    emit("timing_recipe", config=name, card=card, shape=shape_of(tdr, photos.shape[0]),
+         serving=serving, training=training, step_launches=one_step,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    require(one_step == step_launches(topt, 0), (one_step, step_launches(topt, 0)))
+    del trainer, rec, att
+    torch.cuda.empty_cache()
+    return launches
+
+
+def recipes_phase(card):
+    """The three published recipes (recipe_phase) -> the kernel launches of
+    their runs, summed."""
+    t0 = time.perf_counter()
+    total = {}
+    for name in RECIPES:
+        for k, v in recipe_phase(name, card).items():
+            total[k] = total.get(k, 0) + v
+    emit("recipes", card=card, seconds=time.perf_counter() - t0, launches=total)
+    return total
+
+
+def recipe_step_gpu_vs_cpu():
+    """Phase 5 (a) for the Market recipe (--bg --hard, 128x64): one step at
+    b4 on the card against the same step on the CPU."""
+    topt = preset_options(TrainOptions, "recipe_market", template_path=SPHERE,
+                          droprate="0,0,0", batchSize=4)
+    kw = dict(ratio=topt.ratio, init_ellipsoid=topt.ellipsoid)
+    dr = DiffRender(SPHERE, topt.imageSize, device=DEV, **kw)
+    dr_cpu = DiffRender(SPHERE, topt.imageSize, device="cpu", **kw)
+    photos = recipe_photos(dr, 4, SEED + 5, topt.elev_range, RECIPE_RUNS["recipe_market"][4])
+    train_step_gpu_vs_cpu(dr, dr_cpu, photos, topt, "recipe_market")
+
+
 def main(profile_steps=0):
     # 1. toolchain
     card = kernel_times.card()
@@ -1198,6 +1518,8 @@ def main(profile_steps=0):
         unmasked_parity(size, batch, errs)
     stress_parity(errs)
     texture_bwd_stress(errs)
+    # K1-K4 at the three published recipes' shapes, b48
+    recipe_shape_parity(errs)
     # the dense template: the Market shape and bench.py's, near and far cameras,
     # and the recipe's own distance range (the main path's, kept for the summary)
     dense = {(h, w, d): dense_parity(h, w, d, card, errs)
@@ -1221,6 +1543,8 @@ def main(profile_steps=0):
         train_launches[config], trainers[config] = train_steps(config, dr)
         recs[config] = (rec, dr, photos)
         del dr_cpu
+    # a step of the Market recipe (--bg --hard) on the card against the CPU
+    recipe_step_gpu_vs_cpu()
 
     # 6. timing (CUDA events, median after warm-up)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
@@ -1271,6 +1595,9 @@ def main(profile_steps=0):
     frontend_launches, argv, outf = frontend_phase(card)
     torch.cuda.empty_cache()
     trainer_phase(card, argv, outf)
+    # 10. the three published recipes through their CLIs
+    torch.cuda.empty_cache()
+    recipe_launches = recipes_phase(card)
 
     # the kernels' summary: name -> (source, the TPU kernel it replaces, the
     # configuration whose main path launches it, where its times were taken)
@@ -1317,6 +1644,7 @@ def main(profile_steps=0):
             "launches_training": train_launches[config][name] if config else 0,
             "launches_serving": serve_launches[config][name] if config else 0,
             "launches_frontend": frontend_launches.get(name, 0),
+            "launches_recipes": recipe_launches.get(name, 0),
             "max_abs_err": errs[counted], "ms": t[f"{timed}_ms"],
             "warm_ms": t[f"{timed}_warm_ms"],
             "plain_ms": t[f"{timed}_plain_ms"], "bound_ms": t[f"{timed}_bound_ms"],

@@ -68,16 +68,23 @@ def prepare(opt):
     return opt
 
 
+def train_from_flags(opt, make_loaders, device="cuda", timings=None):
+    """Prepare the run of the parsed flags ``opt`` and train on ``device``
+    over the (train, test, noaug) loaders ``make_loaders(opt)`` -> the train
+    state.  An unported or unknown flag raises before anything is written."""
+    train_options(opt)
+    opt = prepare(opt)
+    train_dl, test_dl, noaug_dl = make_loaders(opt)
+    return trainer(train_options(opt), train_dl, test_dl, noaug_dl, opt.outf, device=device,
+                   timings=timings)
+
+
 def main(argv=None, device="cuda", timings=None):
     """Parse ``argv`` (the command line when None), prepare the run and train
     on ``device`` (the card unless the caller names another) -> the train
     state.  ``timings``: see ``train.trainer.trainer``."""
-    opt = build_parser().parse_args(argv)
-    train_options(opt)  # an unported or unknown flag raises before anything is written
-    opt = prepare(opt)
-    train_dl, test_dl, noaug_dl = build_dataloaders(opt)
-    return trainer(train_options(opt), train_dl, test_dl, noaug_dl, opt.outf, device=device,
-                   timings=timings)
+    return train_from_flags(build_parser().parse_args(argv), build_dataloaders, device,
+                            timings)
 
 
 if __name__ == "__main__":

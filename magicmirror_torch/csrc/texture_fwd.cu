@@ -76,8 +76,11 @@ texture_fwd_kernel(const float* __restrict__ uv, const float* __restrict__ mask,
   const float v = fminf(fmaxf(uv[2 * p + 1], 0.f), 1.f);
   const float gx = u * 2.f - 1.f;
   const float gy = -(v * 2.f - 1.f);
-  const float x = ((gx + 1.f) * (float)Wt - 1.f) * 0.5f;
-  const float y = ((gy + 1.f) * (float)Ht - 1.f) * 0.5f;
+  // each step rounded on its own, as the plain version rounds it: an FMA
+  // of (gx + 1) * Wt - 1 moves x by an ulp where Wt is not a power of two
+  // (1.5e-5 in the output at Ht 320, the ATR recipe's texture)
+  const float x = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gx, 1.f), (float)Wt), 1.f), 0.5f);
+  const float y = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(gy, 1.f), (float)Ht), 1.f), 0.5f);
   const float x0 = floorf(x), y0 = floorf(y);
   const float wx = x - x0, wy = y - y0;
   const int xi = (int)x0, yi = (int)y0;

@@ -1,7 +1,10 @@
-"""The datasets and the loader of ``python train.py``, the port of
-``magicmirror/data`` (CUB; the other datasets are not ported yet).  numpy
-only: Pillow is imported only to decode a JPEG."""
+"""The datasets and the loader of the train CLIs, the port of
+``magicmirror/data`` (CUB, Market, ATR and ATR2; THuman2 is not ported
+yet).  numpy only: Pillow is imported only to decode a JPEG."""
+from .atr import ATRDataset
+from .atr2 import ATR2Dataset
 from .cub import CUBDataset
 from .loader import DataLoader
+from .market import MarketDataset
 
-__all__ = ["CUBDataset", "DataLoader"]
+__all__ = ["ATR2Dataset", "ATRDataset", "CUBDataset", "DataLoader", "MarketDataset"]

@@ -5,7 +5,8 @@ The template (``vertices_init``) is passed per call, not stored: the EM
 update rewrites it.  ``train_shape`` (0..5) is the per-iteration freezing
 policy: a frozen branch's outputs are detached, and in train mode its
 BatchNorm layers normalise with the batch statistics without advancing their
-running ones (the JAX train step reverts them, train_step.py:142-157).  The
+running ones (the JAX train step reverts them, train_step.py:142-157).
+With ``bg`` a fifth head, the background encoder, is never frozen.  The
 ``_precondition`` gradient of ``inv > 0`` is not ported.
 """
 from __future__ import annotations
@@ -13,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from .blocks import BatchNorm, Dropout, FlaxNamed
-from .encoders import CameraEncoder, LightEncoder, ShapeEncoder, TextureEncoder
+from .encoders import (BackgroundEncoder, CameraEncoder, LightEncoder, ShapeEncoder,
+                       TextureEncoder)
 
 SHAPE_FROZEN = (1, 4, 5)
 CAMERA_FROZEN = (2, 3, 4)
@@ -37,7 +39,7 @@ class AttributeEncoder(FlaxNamed):
                  elev_range: str = "0~30", dist_range: str = "2~6", nc: int = 4,
                  nk: int = 5, pretraint: str = "res34", pretrainc: str = "none",
                  pretrains: str = "hr18sv2", droprate="0.2,0.2,0.2",
-                 coordconv: bool = False, norm: str = "bn"):
+                 coordconv: bool = False, norm: str = "bn", bg: bool = False):
         super().__init__()
         dc, ds, dt = parse_droprate(droprate)
         self.child(ShapeEncoder(nc=nc, nk=nk, num_vertices=num_vertices, pretrain=pretrains,
@@ -49,6 +51,9 @@ class AttributeEncoder(FlaxNamed):
                                   droprate=dt), "texture_enc")
         self.child(LightEncoder(nc=nc, nk=nk, coordconv=coordconv, norm=norm, droprate=dc),
                    "light_enc")
+        self.bg = bg
+        if bg:  # its dropout is the texture rate's half
+            self.child(BackgroundEncoder(droprate=dt), "bg_enc")
         self._batchnorms = {
             name: [m for m in branch.modules() if isinstance(m, BatchNorm)]
             for name, branch in self.named_children()}
@@ -74,6 +79,7 @@ class AttributeEncoder(FlaxNamed):
                                input_img, template)
         textures = self._branch("texture_enc", train_shape in TEXTURE_FROZEN, input_img)
         lights = self._branch("light_enc", train_shape in TEXTURE_FROZEN, input_img)
+        background = self._branch("bg_enc", False, input_img) if self.bg else None
         azimuths, elevations, distances, biases = cameras
         return {
             "azimuths": azimuths,
@@ -85,5 +91,5 @@ class AttributeEncoder(FlaxNamed):
             "textures": textures,
             "lights": lights,
             "img_feats": None,
-            "bg": None,
+            "bg": background,
         }

@@ -152,6 +152,26 @@ class LightEncoder(FlaxNamed):
         return lightparam * scale + bias
 
 
+class BackgroundEncoder(FlaxNamed):
+    """Masked-background inpainting head: a stride-2 conv on the photo's
+    background (``img * (1 - mask)``), three residual blocks without norm, a
+    nearest 2x upsample, dropout at half the rate, a conv and a sigmoid ->
+    (B, H, W, 3) NHWC in (0, 1)."""
+
+    def __init__(self, droprate: float = 0.0):
+        super().__init__()
+        self.child(Conv2dBlock(3, 32, 3, 2, 1, norm="none", activation="none"))
+        self.child(ResBlocks(3, 32, norm="none"))
+        self.child(Dropout(droprate / 2), "drop")
+        self.child(Conv2dBlock(32, 3, 3, 1, 1, norm="none", activation="none"))
+
+    def forward(self, x):
+        bg = _nchw(x[..., :3] * (1.0 - x[..., 3:4]))
+        h = upsample2x(self.ResBlocks_0(self.Conv2dBlock_0(bg)))
+        h = self.Conv2dBlock_1(self.drop(h))
+        return torch.sigmoid(h).permute(0, 2, 3, 1)
+
+
 class BiFPN(FlaxNamed):
     """Bidirectional FPN over a 4-level pyramid (x5, x4, x3, x2) with
     channels (d, d/2, d/4, d/8)."""

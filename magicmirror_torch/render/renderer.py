@@ -99,9 +99,12 @@ class DiffRender:
         """Render -> (rgba (B, H, W, 4), attributes), the attributes extended
         with 'face_normals', 'imnormal', 'faces_image', 'visiable_faces' and
         the (always zero) drop counters.  Differentiable with respect to the
-        vertices, the camera, the textures and the lights."""
-        if no_mask:
-            raise NotImplementedError("no_mask (the bg option) is not ported")
+        vertices, the camera, the textures and the lights, and with
+        ``no_mask`` the background: the uncovered pixels take ``bg`` (B, H,
+        W, 3) in place of white, lit by the SH coefficient as the covered
+        ones are."""
+        if no_mask and attributes.get("bg") is None:
+            raise ValueError("no_mask renders over the attributes' bg, which is None")
         B = attributes["azimuths"].shape[0]
         textures = attributes["textures"]
         face_vertices_camera, face_vertices_image, face_normals = self.project(attributes)
@@ -116,7 +119,10 @@ class DiffRender:
         else:
             masked_tex = texture_render(texcoord, textures, hard)
         coef = spherical_harmonic_lighting(imnormal, attributes["lights"])
-        image = masked_tex * coef[..., None] + (1.0 - texmask)
+        if no_mask:
+            image = (masked_tex + attributes["bg"] * (1.0 - texmask)) * coef[..., None]
+        else:
+            image = masked_tex * coef[..., None] + (1.0 - texmask)
         rgbs = torch.cat([image.clamp(0.0, 1.0), soft_mask[..., None]], dim=-1)
 
         attributes = dict(attributes)

@@ -31,9 +31,10 @@ def bench_attributes(vertices_init: np.ndarray, batch: int, image_size: int,
 
 
 def to_torch(att: dict, device) -> dict:
-    """numpy attribute dict -> tensors on ``device`` (``bg`` None)."""
+    """numpy attribute dict -> tensors on ``device`` (``bg`` None unless
+    the dict has one)."""
     out = {k: torch.as_tensor(v, device=device) for k, v in att.items()}
-    out["bg"] = None
+    out.setdefault("bg", None)
     return out
 
 

@@ -14,9 +14,11 @@ covers: ``ServeOptions`` defaults are those of
     rec = Reconstructor(netE, dr, opt)
     out = rec(images, generator=torch.Generator("cuda").manual_seed(0))
 
-``preset_options(ServeOptions, "market_smpl")`` and ``"cub_exact"`` are the
-two configurations beside the default: the human-body recipe on the dense
-SMPL template, and the defaults with ``soft_mode="exact"``.
+``preset_options(ServeOptions, name)`` gives the configurations beside the
+default (``PRESETS``): ``"market_smpl"``, the Market geometry on the dense
+SMPL template; ``"cub_exact"``, the defaults with ``soft_mode="exact"``; and
+the three published recipes ``"recipe_cub"``, ``"recipe_market"`` and
+``"recipe_atr2"``.
 
 ``estimate_bn_stats`` and ``Reconstructor`` run the encoder and the renders in
 float32 without TF32, whatever the caller's ``torch.backends`` flags say
@@ -32,6 +34,7 @@ import torch
 from torch.nn.modules.batchnorm import _BatchNorm
 
 from . import resolve_device
+from .configs import recipes
 from .models.attribute_encoder import AttributeEncoder
 from .render.renderer import DiffRender, deep_copy
 
@@ -68,19 +71,23 @@ class ServeOptions:
     soft_mode: str = "line"
 
 
-# The flags of the human-body recipe that the port reads
-# (``MARKET_DEFAULTS``, ``magicmirror/cli/train_market.py:10-21``): ratio-2
-# renders (height = 2 x imageSize) of a template squashed to an ellipsoid.
-MARKET_DEFAULTS = dict(ratio=2.0, ellipsoid=2.0, bias_range=0.5, elev_range="-15~15",
-                       dist_range="2~6")
+# The geometry of the human-body CLI's defaults (``configs.recipes``, the port
+# of ``magicmirror/cli/train_market.py:10-21``): ratio-2 renders (height = 2 x
+# imageSize) of a template squashed to an ellipsoid, and its camera ranges.
+MARKET_DEFAULTS = {k: recipes.MARKET_DEFAULTS[k]
+                   for k in ("ratio", "ellipsoid", "bias_range", "elev_range", "dist_range")}
 PRESETS = {
-    # the Market recipe at its published size (``docs/RECIPES.md``: imageSize
-    # 64, renders 128 x 64) on the dense SMPL template (6,890 vertices, 13,776
-    # faces); the recipe's --bg and --hard are not ported and stay off
+    # the dense-kernel configuration: the Market geometry at the recipe's size
+    # (imageSize 64, renders 128 x 64) on the dense SMPL template (6,890
+    # vertices, 13,776 faces), at the default flags otherwise.  It is not the
+    # published Market recipe, which trains on sphere.obj ("recipe_market")
     "market_smpl": dict(MARKET_DEFAULTS, imageSize=64,
                         template_path="./template/smpl_uv.obj"),
     # the CUB defaults with kaolin's segment-distance silhouette
     "cub_exact": dict(soft_mode="exact"),
+    # the three published recipes (docs/RECIPES.md: CUB, Market-HQ, ATR at
+    # 160 x 96), every flag as their CLIs parse them: --bg and --hard among them
+    **{name: recipes.recipe_flags(name) for name in recipes.RECIPES},
 }
 
 
@@ -96,8 +103,6 @@ def preset_options(cls, name: str, **overrides):
 def unported_options(opt) -> list[str]:
     """The settings of ``opt`` that the port's encoder does not cover."""
     unported = []
-    if opt.bg:
-        unported.append("bg")
     if opt.makeup != 0:
         unported.append(f"makeup={opt.makeup}")
     if opt.lambda_lc > 0:
@@ -124,7 +129,7 @@ def build_models(opt, diff_render: DiffRender, device="cuda") -> AttributeEncode
         num_vertices=diff_render.num_vertices, azi_scope=opt.azi_scope,
         elev_range=opt.elev_range, dist_range=opt.dist_range, nc=4, nk=opt.nk,
         pretraint=opt.pretraint, pretrainc=opt.pretrainc, pretrains=opt.pretrains,
-        droprate=opt.droprate, coordconv=opt.coordconv, norm=opt.norm)
+        droprate=opt.droprate, coordconv=opt.coordconv, norm=opt.norm, bg=opt.bg)
     return netE.to(device).eval()
 
 

@@ -5,8 +5,9 @@ configurations the port covers.
     trainer = build_trainer(opt)                  # on the card
     metrics, Xer, Xir = trainer.step(photos, lr_e=1e-4, lr_d=1e-4, warm_up=1.0)
 
-``preset_options(TrainOptions, "market_smpl")`` and ``"cub_exact"`` are the
-configurations beside the default (``serve.PRESETS``).  ``TrainOptions``
+``preset_options(TrainOptions, name)`` gives the configurations beside the
+default (``serve.PRESETS``: ``market_smpl``, ``cub_exact`` and the three
+published recipes).  ``TrainOptions``
 holds the flags the step reads with the defaults of
 ``magicmirror/configs/flags.py``; an option outside the port raises
 ``NotImplementedError`` (``multigpus`` and ``fp16`` among them).
@@ -51,6 +52,7 @@ class TrainOptions(ServeOptions):
     azim: float = 1.0
     beta: float = 0
     hard: bool = False
+    hard_range: int = 0
     L1: bool = False
     flipL1: bool = False
     unmask: int = 0
@@ -106,8 +108,6 @@ class TrainOptions(ServeOptions):
 def unported_train_options(opt: TrainOptions) -> list[str]:
     """The settings of ``opt`` that the port's train step does not cover."""
     unported = unported_options(opt)
-    if opt.hard:
-        unported.append("hard")
     if opt.gan_type != "wgan":
         unported.append(f"gan_type={opt.gan_type}")
     if opt.sn_dis:
@@ -125,13 +125,12 @@ def unported_train_options(opt: TrainOptions) -> list[str]:
 
 # the flags of ``configs.flags.build_parser`` that are not TrainOptions: the
 # CLI's own (the data, the loaders, the run's directory and process), read
-# by ``cli.train``; and those that the JAX package's step reads nowhere or
-# that answer to the TPU runtime (``hard_range`` only with ``hard``, which
-# is not ported), accepted and ignored
+# by the train CLIs; and those that the JAX package's step reads nowhere or
+# that answer to the TPU runtime, accepted and ignored
 CLI_FLAGS = ("name", "dataroot", "workers", "prefetch_factor", "threshold", "clean_threshold",
              "outf", "process_index", "process_count")
 IGNORED_FLAGS = ("configs_yml", "category", "cuda", "start_epoch", "romp", "swa_lr",
-                 "hard_range", "raster_backend")
+                 "raster_backend")
 
 
 def train_options(namespace) -> TrainOptions:

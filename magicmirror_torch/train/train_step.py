@@ -2,8 +2,9 @@
 ``magicmirror/train/train_step.py``.
 
 One call performs
-  D step: encode -> render (Xer, Xir; Xer90 = Xer) -> critic on the detached
-          images -> WGAN-GP loss -> update of D;
+  D step: encode -> render (Xer, Xir, and with ``hard`` Xer90, the
+          reconstruction at a random large azimuth; else Xer90 = Xer) ->
+          critic on the detached images -> WGAN-GP loss -> update of D;
   G step: the updated critic on the SAME rendered images -> reconstruction +
           mesh regularizers + interpolated cycle -> update of E.
 The encoder and the renders run once with their graph kept; the D loss reads
@@ -12,9 +13,13 @@ Every random draw of the step is an argument (``draws``), sampled by
 ``sample_draws`` when the caller passes none.  The learning rates and the
 warm-up factor are per-call scalars.
 
+With ``bg`` every render composites the background encoder's output where
+no face covers a pixel (``DiffRender.render(no_mask=True)``), and the
+interpolated view mixes the two backgrounds by the texture's weight.
+
 The JAX step also renders the re-encoded attributes ``Aire``; nothing reads
 that render (XLA removes it), so it is not launched here: a step renders
-twice.
+twice, three times with ``hard``.
 """
 from __future__ import annotations
 
@@ -61,8 +66,9 @@ def _resample_bad(u, perm, bad):
 def sample_draws(opt, batch: int, generator: torch.Generator | None, device) -> dict:
     """The random draws of one step, from ``generator`` on ``device``: two
     batch permutations and the uniforms of their replacements, the camera of
-    the interpolated view, the three interpolation weights and the two
-    gradient-penalty weights."""
+    the interpolated view, the three interpolation weights, the two
+    gradient-penalty weights and, with ``hard``, those of the hard view
+    (:func:`hard_azimuths`)."""
     def uniform(shape, lo=0.0, hi=1.0):
         return lo + (hi - lo) * torch.rand(shape, generator=generator, device=device)
 
@@ -91,7 +97,22 @@ def sample_draws(opt, batch: int, generator: torch.Generator | None, device) -> 
     else:
         draws["alpha_texture"] = uniform((B, 1, 1, 1))
         draws["alpha_shape"] = uniform((B, 1, 1))
+    if opt.hard:
+        draws["hard_branch"] = uniform(()) < 0.5
+        draws["hard_u"] = uniform((B,))
+        draws["hard_sign"] = torch.where(uniform((B,)) < 0.5, -1.0, 1.0)
     return draws
+
+
+def hard_azimuths(opt, draws):
+    """The azimuths of the hard view (train_step.py:171-179 of the JAX
+    package): one coin for the whole batch picks -U(hard_range, 180 -
+    hard_range) or -U(0, 180), both maps of the one uniform ``hard_u`` (the
+    JAX step draws them from one key), times a random sign per image."""
+    u, hr = draws["hard_u"], opt.hard_range
+    az1 = -(u * float(180.0 - hr - hr) + float(hr))
+    az2 = -(u * 180.0)
+    return torch.where(draws["hard_branch"], az1, az2) * draws["hard_sign"]
 
 
 def regularization(diffRender, Ae, Ai, Aire, opt):
@@ -131,12 +152,15 @@ def regularization(diffRender, Ae, Ai, Aire, opt):
 
 def e_outputs(state, diffRender, opt, Xa, draws, train_shape):
     """Everything downstream of the encoder's parameters, in one forward
-    with its graph kept: the reconstruction, the interpolated view and the
-    re-encoding of that view."""
+    with its graph kept: the reconstruction, the interpolated view, with
+    ``hard`` the hard view, and the re-encoding of the interpolated view."""
     netE, template = state.netE, state.template
     lpl = diffRender.vertices_laplacian_matrix
     Ae = netE(Xa, template, lpl, train_shape=train_shape)
-    Xer, Ae = diffRender.render(**Ae)
+    Xer, Ae = diffRender.render(no_mask=opt.bg, **Ae)
+    if opt.hard:  # the reconstruction again, at a random large azimuth
+        Ae90 = deep_copy(Ae)
+        Ae90["azimuths"] = hard_azimuths(opt, draws)
 
     # collapse guard and interpolation partners
     bad = Ae["delta_vertices"].abs()[:, -1].mean(dim=1) > 0.4
@@ -156,12 +180,12 @@ def e_outputs(state, diffRender, opt, Xa, draws, train_shape):
                                + (1 - a_shape) * Ab["delta_vertices"]),
             "textures": a_tex * Aa["textures"] + (1.0 - a_tex) * Ab["textures"],
             "lights": a_light * Aa["lights"] + (1.0 - a_light) * Ab["lights"],
-            "bg": None,
+            "bg": (a_tex * Aa["bg"] + (1.0 - a_tex) * Ab["bg"]) if opt.bg else None,
         }
-        Xir, Ai = diffRender.render(**Ai)
+        Xir, Ai = diffRender.render(no_mask=opt.bg, **Ai)
     else:
         Xir, Ai = Xer, Ae
-    Xer90 = Xer  # the hard-negative view is not ported
+    Xer90 = diffRender.render(no_mask=opt.bg, **Ae90)[0] if opt.hard else Xer
 
     Aire = netE(Xir.detach(), template, lpl, train_shape=0)
     Ma, Mer90, Mir = _select_masks(opt.unmask, Xa, Xer90, Xir)

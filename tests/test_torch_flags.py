@@ -67,9 +67,9 @@ def test_train_options_from_the_parsed_flags():
         ["--lr", "3e-4", "--niter", "7", "--steps_per_call", "1", "--donate_state",
          "--band_capacity", "320", "--raster_backend", "xla", "--hard_range", "30"]))
     assert isinstance(opt, TrainOptions)
-    assert (opt.lr, opt.niter, opt.imageSize, opt.template_path) == (
-        3e-4, 7, 128, "./template/sphere.obj")
-    for argv in (["--bg"], ["--hard"], ["--multigpus"], ["--fp16"], ["--makeup", "1"],
+    assert (opt.lr, opt.niter, opt.imageSize, opt.template_path, opt.hard_range) == (
+        3e-4, 7, 128, "./template/sphere.obj", 30)
+    for argv in (["--multigpus"], ["--fp16"], ["--makeup", "1"],
                  ["--gan_type", "lsgan"], ["--pretrainc", "res18"], ["--norm", "in"],
                  ["--inv", "1"], ["--lambda_lc", "1"], ["--hmr", "1"], ["--dis1", "0.5"]):
         with pytest.raises(NotImplementedError):

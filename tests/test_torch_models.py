@@ -12,6 +12,7 @@ predicted flow and is held to 1e-4 on 99.5% of texels of a smooth photo
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,7 +40,8 @@ def _pair(jmodule, tmodule, jargs, jkw, seed):
     """Random Flax variables -> (JAX output, the torch module loaded with
     the same variables, in eval mode)."""
     variables = random_variables(flax_shapes(jmodule, *jargs, **jkw), seed)
-    ref = jmodule.apply(variables, *jargs, **jkw)
+    # one XLA program: applied eagerly, Flax dispatches (and compiles) op by op
+    ref = jax.jit(lambda v, *a: jmodule.apply(v, *a, **jkw))(variables, *jargs)
     load_flax_variables(tmodule, variables["params"], variables.get("batch_stats"))
     return ref, tmodule.eval()
 

@@ -126,7 +126,7 @@ def test_exact_gradient_matches_jax_grad_of_golden_path():
                                       jnp.asarray(fnz), soft_mode="exact")
         return jnp.sum(soft * w_soft) + jnp.sum(uv * 0.3) + jnp.sum(normal ** 2)
 
-    ref = [np.asarray(g) for g in jax.grad(loss_golden, argnums=(0, 1, 2))(
+    ref = [np.asarray(g) for g in jax.jit(jax.grad(loss_golden, argnums=(0, 1, 2)))(
         jnp.asarray(fvi), jnp.asarray(face_uvs), jnp.asarray(normals))]
     for fn in (rasterize_fused, dibr_rasterization):
         leaves = [t(a).requires_grad_(True) for a in (fvi, face_uvs, normals)]

@@ -71,9 +71,13 @@ def test_deep_copy_selects_and_clones():
 
 
 def test_render_refuses_the_background_path():
+    """Without a background the background path raises (the JAX renderer
+    fails on ``None * ...``); tests/test_torch_background.py holds the path
+    itself to the JAX package."""
     dr = DiffRender(SPHERE, 16, device="cpu")
     att = to_torch(bench_attributes(n(dr.vertices_init), 1, 16, seed=0), "cpu")
-    with pytest.raises(NotImplementedError, match="no_mask"):
+    assert att["bg"] is None
+    with pytest.raises(ValueError, match="no_mask renders over the attributes' bg"):
         dr.render(no_mask=True, **att)
 
 

@@ -5,7 +5,11 @@ JAX package on the CPU:
     2, ellipsoid 2, ``elev_range -15~15``, ``dist_range 2~6``, ``bias_range
     0.5``) at 64x32 on ``sphere2.obj`` (2,562 vertices, 5,120 faces: dense
     enough for the JAX renderer's v6 route on a TPU, and minutes cheaper to
-    compile here than ``smpl_uv.obj``);
+    compile here than ``smpl_uv.obj``), with the published Market recipe's
+    flags (``docs/RECIPES.md``: ``--bg --hard --unmask 2 --L1 --ganw 0
+    --lambda_data 2 --lambda_flat 0.02 --lambda_depthR 0.15 --beta1 0.95``)
+    and ``--hard_range 30``, so that the hard view's two azimuth ranges
+    differ (its draws: tests/test_torch_recipe_step.py);
   * ``exact``: the defaults with ``soft_mode='exact'`` on ``sphere.obj`` at
     32^2.
 
@@ -26,7 +30,9 @@ norms 1e-2, the worst rgb 3e-2) with the image rule of
 ``parity.check_train_renders`` (alpha on 99.5% of an image's pixels, rgb on
 98%: seen 98.97% at 64x32, where the train-mode texture flow carries the
 BatchNorm-over-4-samples noise), for the reasons stated there.  Batch 4 and
-the scaled shape head likewise.
+the scaled shape head likewise; the market step also holds the running
+statistics and the updated parameters as that file does, and shows the
+background encoder trained.
 
 One XLA compile of a train step per configuration makes this file slow; it
 holds two test functions on purpose (``--dist loadfile`` hands out the files
@@ -46,19 +52,28 @@ from magicmirror.train.optim import make_optimizer_d, make_optimizer_e
 from magicmirror.train.state import TrainState as JTrainState
 from magicmirror.train.train_step import make_train_step
 from magicmirror_torch import parity
-from magicmirror_torch.models.convert import load_flax_variables
+from magicmirror_torch.configs.recipes import recipe_flags
+from magicmirror_torch.models.convert import flax_to_state_dict, load_flax_variables
 from magicmirror_torch.render.renderer import DiffRender
 from magicmirror_torch.render.synthetic import bench_attributes, to_torch
 from magicmirror_torch.serve import MARKET_DEFAULTS
 from magicmirror_torch.train import METRIC_KEYS, TrainOptions, build_trainer
-from test_torch_train_step import _draws
+from test_torch_recipe_step import _hard_draws
+from test_torch_train_step import (_draws, _running_statistics_match_reference,
+                                   _updated_parameters_match_reference)
 from torch_parity import REPO, SPHERE, as_numpy_tree, flax_shapes, n, random_variables, t
 
 torch.set_num_threads(1)
 S, B = 32, 4
 LR = 1e-4
+# the published Market recipe's flags that the step reads (its command line,
+# parsed by the Market CLI: tests/test_torch_recipe_cli.py)
+RECIPE_STEP_FLAGS = ("bg", "hard", "unmask", "L1", "ganw", "lambda_data", "lambda_flat",
+                     "lambda_depthR", "beta1")
 CONFIGS = {
-    "market": dict(MARKET_DEFAULTS, template_path=f"{REPO}/template/sphere2.obj"),
+    "market": dict(MARKET_DEFAULTS, template_path=f"{REPO}/template/sphere2.obj",
+                   hard_range=30, **{k: recipe_flags("recipe_market")[k]
+                                     for k in RECIPE_STEP_FLAGS}),
     "exact": dict(soft_mode="exact", template_path=SPHERE),
 }
 
@@ -76,7 +91,7 @@ def _flags(config):
 def _renderers(config):
     opt = _flags(config)
     jdr = JDiffRender(opt.template_path, S, ratio=opt.ratio, init_ellipsoid=opt.ellipsoid,
-                      backend="xla", soft_mode=opt.soft_mode)
+                      lambda_flat=opt.lambda_flat, backend="xla", soft_mode=opt.soft_mode)
     dr = DiffRender(opt.template_path, S, ratio=opt.ratio, init_ellipsoid=opt.ellipsoid,
                     soft_mode=opt.soft_mode, device="cpu")
     return opt, jdr, dr
@@ -130,14 +145,15 @@ def test_one_train_step_matches_reference(config):
         num_vertices=jdr.num_vertices, azi_scope=opt.azi_scope, elev_range=opt.elev_range,
         dist_range=opt.dist_range, nc=4, nk=opt.nk, nf=opt.nf, ratio=opt.ratio,
         pretraint=opt.pretraint, pretrainc=opt.pretrainc, pretrains=opt.pretrains,
-        droprate=opt.droprate, norm=opt.norm)
-    netD = JDiscriminator(nc=3, nf=16)
+        droprate=opt.droprate, norm=opt.norm, bg=opt.bg)
+    nc = 4 if opt.unmask == 2 else 3
+    netD = JDiscriminator(nc=nc, nf=16)
     lpl = jdr.vertices_laplacian_matrix
     ve = random_variables(flax_shapes(netE, jnp.asarray(imgs), jdr.vertices_init, lpl,
                                       train=False), seed=0)
     ve["params"]["shape_enc"]["linear3"]["kernel"] *= 0.02
-    vd = random_variables(flax_shapes(netD, jnp.asarray(imgs[..., :3])), seed=1)
-    opt_e, opt_d = make_optimizer_e(), make_optimizer_d()
+    vd = random_variables(flax_shapes(netD, jnp.asarray(imgs[..., :nc])), seed=1)
+    opt_e, opt_d = make_optimizer_e(beta1=opt.beta1), make_optimizer_d(beta1=opt.beta1)
     as_jax = lambda tree: jax.tree_util.tree_map(jnp.asarray, tree)  # noqa: E731
     pe, se, pd = as_jax(ve["params"]), as_jax(ve["batch_stats"]), as_jax(vd["params"])
     state = JTrainState(
@@ -148,7 +164,7 @@ def test_one_train_step_matches_reference(config):
     step = make_train_step(opt, jdr, netE, netD, opt_e, opt_d, lpl, donate=False,
                            steps_per_call=1)
     rng = jax.random.PRNGKey(42)
-    _, ref_metrics, ref_Xer, ref_Xir = step(state, jnp.asarray(imgs), rng, LR, LR, 1.0, 0)
+    state2, ref_metrics, ref_Xer, ref_Xir = step(state, jnp.asarray(imgs), rng, LR, LR, 1.0, 0)
     ref_metrics = as_numpy_tree(ref_metrics)
 
     topt = TrainOptions(imageSize=S, batchSize=B, pretrains="none", pretraint="none",
@@ -157,7 +173,10 @@ def test_one_train_step_matches_reference(config):
     trainer = build_trainer(topt, device="cpu")
     load_flax_variables(trainer.state.netE, ve["params"], ve["batch_stats"])
     load_flax_variables(trainer.state.netD, vd["params"])
-    metrics, Xer, Xir = trainer.step(t(imgs), LR, LR, 1.0, 0, draws=_draws(opt, rng))
+    before = {"netE": {k: v.clone() for k, v in trainer.state.netE.state_dict().items()},
+              "netD": {k: v.clone() for k, v in trainer.state.netD.state_dict().items()}}
+    draws = {**_draws(opt, rng), **(_hard_draws(rng) if opt.hard else {})}
+    metrics, Xer, Xir = trainer.step(t(imgs), LR, LR, 1.0, 0, draws=draws)
 
     assert set(metrics) == set(METRIC_KEYS)
     for key in ref_metrics:
@@ -174,3 +193,21 @@ def test_one_train_step_matches_reference(config):
     assert stats["alpha_max"] <= tol["alpha_max"], stats
     assert stats["rgb_within_frac"] >= parity.TRAIN_RGB_FRAC, stats
     assert stats["rgb_max"] <= 3e-2, stats
+    if config != "market":
+        return
+    # the recipe's step: the running statistics and the updates as
+    # tests/test_torch_train_step.py holds them, and the background encoder
+    # trained (through the critic: the data term composites both images on
+    # white under the photo's mask); its renders show that background
+    runs = (dict(netE=flax_to_state_dict(as_numpy_tree(state2.params_e),
+                                         as_numpy_tree(state2.stats_e)),
+                 netD=flax_to_state_dict(as_numpy_tree(state2.params_d))),
+            dict(trainer=trainer, before=before), None)
+    _running_statistics_match_reference(runs)
+    for net in ("netE", "netD"):
+        _updated_parameters_match_reference(runs, net)
+    state = trainer.state.netE.state_dict()
+    for key in ("bg_enc.Conv2dBlock_0.Conv_0.weight", "bg_enc.Conv2dBlock_1.Conv_0.bias"):
+        assert key in runs[0]["netE"]
+        assert not torch.equal(state[key], before["netE"][key]), key
+    assert (Xer[..., :3][Xer[..., 3] < 1e-6] < 0.999).any()

@@ -39,7 +39,7 @@ def _gradients():
         rgba, _ = jdr.render(**full, bg=None)
         return jnp.sum(rgba * w)
 
-    ref = jax.grad(loss)({k: jnp.asarray(att[k]) for k in GRAD_KEYS})
+    ref = jax.jit(jax.grad(loss))({k: jnp.asarray(att[k]) for k in GRAD_KEYS})
     ours = to_torch(att, "cpu")
     for key in GRAD_KEYS:
         ours[key].requires_grad_(True)

@@ -130,7 +130,7 @@ def test_serve_options_defaults_are_the_flag_defaults():
         assert getattr(opt, field.name) == field.default, field.name
 
 
-@pytest.mark.parametrize("change", [{"bg": True}, {"makeup": 1}, {"lambda_lc": 0.1},
+@pytest.mark.parametrize("change", [{"norm": "in"}, {"makeup": 1}, {"lambda_lc": 0.1},
                                    {"nolpl": True}, {"pretrains": "res50"},
                                    {"pretraint": "swin"}, {"pretrainc": "res18"}])
 def test_options_outside_the_port_raise(change):
@@ -162,8 +162,9 @@ def test_port_imports_without_jax_flax_yaml_or_pil():
                    "train.checkpoints", "eval.metrics", "eval.images", "eval.reports",
                    "eval.gifs", "eval.inception", "eval.fid", "benchmarks.texture_parts",
                    "benchmarks.timing", "benchmarks.kernel_times", "data", "data.base",
-                   "data.cub", "data.loader", "configs", "configs.flags", "cli",
-                   "cli.train"):
+                   "data.cub", "data.loader", "data.market", "data.atr", "data.atr2",
+                   "configs", "configs.flags", "configs.recipes", "cli", "cli.train",
+                   "cli.train_market", "cli.train_atr", "cli.train_atr2"):
         assert f"magicmirror_torch.{module}" in names, module
     for name in names:  # and they import here too
         importlib.import_module(name)

@@ -43,7 +43,7 @@ def test_train_options_defaults_are_the_flag_defaults():
 
 
 @pytest.mark.parametrize("change", [
-    {"bg": True}, {"hard": True}, {"inv": 0.1}, {"dis1": 0.1}, {"dis2": 0.1},
+    {"nolpl": True}, {"pretraint": "swin"}, {"inv": 0.1}, {"dis1": 0.1}, {"dis2": 0.1},
     {"lambda_lc": 0.1}, {"gan_type": "lsgan"}, {"hmr": 1.0}, {"makeup": 1},
     {"norm": "in"}, {"pretrains": "res50"}, {"sn_dis": 1},
     {"adamw": True, "amsgrad": False}, {"multigpus": True}, {"fp16": True}])

@@ -85,8 +85,9 @@ def train_pair(jmodule, tmodule, jargs, seed):
     from magicmirror_torch.models.convert import flax_to_state_dict, load_flax_variables
 
     variables = random_variables(flax_shapes(jmodule, *jargs, train=False), seed)
-    ref, mutated = jmodule.apply(variables, *jargs, train=True, rngs=DROP,
-                                 mutable=["batch_stats"])
+    # one XLA program: applied eagerly, Flax dispatches (and compiles) op by op
+    ref, mutated = jax.jit(lambda v, *a: jmodule.apply(
+        v, *a, train=True, rngs=DROP, mutable=["batch_stats"]))(variables, *jargs)
     load_flax_variables(tmodule, variables["params"], variables.get("batch_stats"))
     return ref, flax_to_state_dict({}, jax.device_get(mutated["batch_stats"])), tmodule.train()
 
