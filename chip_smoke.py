@@ -64,7 +64,17 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      over the same loaders: the restore (into a fresh state first, tensor
      by tensor), one epoch with the EM template update and the BatchNorm
      refresh after it, the eval, the checkpoints, and the kernel launches;
- 10. the three published recipes (docs/RECIPES.md: CUB, Market-HQ, ATR at
+ 10. the evaluation and serving CLIs on that run (its checkpoint with SWA
+     and best_mesh.obj, the tree's 16 test photos): cli.test (the fid/
+     files, hist.png.npz, SSIM, mask-IoU, three FIDs; four photos' arrays
+     held to a CPU run of the same eval step on the same checkpoint),
+     show_camera, show_rainbow2 (the grids and five GIFs, their frames
+     counted), single_img on one photo (its mask clean and salted),
+     test_cub30 (12 bins, 12 FIDs), test_pck (keypoint files written for
+     the photos) and test_thu (a THuman2 tree of the template's own renders
+     and normals): each CLI's files, its seconds by part, and the K1 and K3
+     launches of its renders;
+ 11. the three published recipes (docs/RECIPES.md: CUB, Market-HQ, ATR at
      160x96; --bg --hard, b48) through their CLIs (cli.train,
      cli.train_market, cli.train_atr2) at their own flags but --name,
      --dataroot and --niter 1, each over a tree of its dataset's layout
@@ -107,13 +117,21 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
 
 from magicmirror_torch import kernels, parity  # noqa: E402
+from magicmirror_torch.cli import show_camera as cli_show_camera  # noqa: E402
+from magicmirror_torch.cli import show_rainbow2 as cli_show_rainbow2  # noqa: E402
+from magicmirror_torch.cli import single_img as cli_single_img  # noqa: E402
+from magicmirror_torch.cli import test as cli_test  # noqa: E402
+from magicmirror_torch.cli import test_cub30 as cli_test_cub30  # noqa: E402
+from magicmirror_torch.cli import test_pck as cli_test_pck  # noqa: E402
+from magicmirror_torch.cli import test_thu as cli_test_thu  # noqa: E402
 from magicmirror_torch.cli import train as cli_train  # noqa: E402
 from magicmirror_torch.cli import train_atr2 as cli_train_atr2  # noqa: E402
 from magicmirror_torch.cli import train_market as cli_train_market  # noqa: E402
 from magicmirror_torch.configs import flags  # noqa: E402
 from magicmirror_torch.configs.recipes import CLI_DEFAULTS, RECIPES, recipe_flags  # noqa: E402
 from magicmirror_torch.data import atr as atr_data  # noqa: E402
-from magicmirror_torch.eval.images import encode_png, save_array_image, to_uint8  # noqa: E402
+from magicmirror_torch.eval.images import (decode_png, encode_png, read_image,  # noqa: E402
+                                           save_array_image, to_uint8)
 from magicmirror_torch.kernels import build  # noqa: E402
 from magicmirror_torch.losses import recon  # noqa: E402
 from magicmirror_torch.models.attribute_encoder import (CAMERA_FROZEN,  # noqa: E402
@@ -1236,6 +1254,260 @@ def frontend_phase(card):
     return launches, argv, outf
 
 
+# the files the eval CLIs write over the front end's 16 test photos (CUB
+# serves each twice, under one name): cli.test's fid/ directories, one
+# test_cub30 directory a bin and one for the photos
+TEST_FILES = {"ori": 16, "rec_tmp": 16, "inter": 32, "inter90": 32, "ori_mask": 16,
+              "rec_mask": 16}
+RAINBOW_FILES = ("rainbow_Xa.png", "rainbow_Xer.png", "rainbow_Xir.png", "rainbow_texture.png",
+                 "rainbow_mesh.obj")
+RAINBOW_GIFS = {"rainbow.gif": 36, "rainbow_bias.gif": 7, "rainbow_rotation.gif": 36,
+                "rainbow_elevation.gif": 3, "rainbow_distance.gif": 6}
+
+
+def gif_frames(path):
+    """The frames of a GIF file, by its blocks."""
+    with open(path, "rb") as fp:
+        data = fp.read()
+    pos, frames = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0), 0
+    while data[pos] != 0x3B:
+        if data[pos] == 0x2C:  # an image: its descriptor, a local palette, the LZW size
+            frames += 1
+            flags = data[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0) + 1
+        else:  # an extension: its label
+            pos += 2
+        while data[pos]:  # the sub-blocks
+            pos += data[pos] + 1
+        pos += 1
+    return frames
+
+
+def eval_cli(name, main, argv, work, **kwargs):
+    """One eval CLI's ``main(argv, device=card)`` in ``work`` -> (its result,
+    the host seconds, the kernel launches it made, its "seconds" line)."""
+    out, cwd = io.StringIO(), os.getcwd()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(out):
+            result = main(argv, device=DEV, **kwargs)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    line = next((ln for ln in out.getvalue().splitlines() if ln.startswith(f"{name} seconds:")),
+                None)
+    require(line is not None, (name, "no seconds line", out.getvalue()[-2000:]))
+    return result, seconds, launches, line
+
+
+def thuman_tree(root, n):
+    """A THuman2-layout tree of ``n`` scans, one view each, at 128^2: the
+    template under smooth random textures at bench.py's cameras, its
+    render as ``render/0.png``, its alpha as the last channel of
+    ``depth_F/0.png``, its own ``imnormal`` as ``normal_F/0.png``."""
+    dr = DiffRender(SPHERE, 128, device=DEV)
+    att = bench_attributes(dr.vertices_init.cpu().numpy(), n, 128, SEED + 70)
+    att["textures"] = smooth_random((n, 256, 128, 3), SEED + 70)
+    with torch.no_grad():
+        rgba, out = dr.render(**to_torch(att, DEV))
+    rgba, normal = rgba.cpu().numpy(), out["imnormal"].cpu().numpy() * 0.5 + 0.5
+    for i in range(n):
+        files = {"render": to_uint8(rgba[i, :, :, :3]), "normal_F": to_uint8(normal[i]),
+                 "depth_F": np.concatenate([to_uint8(rgba[i, :, :, :3]),
+                                            (rgba[i, :, :, 3:] > 0.5).astype(np.uint8) * 255],
+                                           axis=-1)}
+        for sub, arr in files.items():
+            os.makedirs(os.path.join(root, f"scan{i:02d}", sub))
+            with open(os.path.join(root, f"scan{i:02d}", sub, "0.png"), "wb") as fp:
+                fp.write(encode_png(arr))
+    return root
+
+
+def keypoint_files(root, data):
+    """CUB_200_2011's ``images.txt`` and ``parts/part_locs.txt`` for the test
+    photos of the tree ``data``: 15 parts a photo at pixels of its mask
+    (seeded), every eighth not visible."""
+    rs = np.random.RandomState(SEED + 80)
+    test = os.path.join(data, "test", "c0")
+    masks = sorted(f for f in os.listdir(test) if f.endswith(".png"))
+    os.makedirs(os.path.join(root, "parts"))
+    with open(os.path.join(root, "images.txt"), "w") as fp_img, \
+            open(os.path.join(root, "parts", "part_locs.txt"), "w") as fp_kp:
+        for i, name in enumerate(masks):
+            fp_img.write(f"{i + 1} c0/{name[:-9]}.jpg\n")
+            with open(os.path.join(test, name), "rb") as fm:
+                ys, xs = np.nonzero(decode_png(fm.read()))
+            for part, j in enumerate(rs.randint(0, len(xs), 15)):
+                fp_kp.write(f"{i + 1} {part + 1} {xs[j]}.0 {ys[j]}.0 {int(part % 8 != 7)}\n")
+    return root
+
+
+def eval_clis_phase(card, outf):
+    """The evaluation and serving CLIs on the front end's run (``outf``, the
+    default configuration at full width after the trainer phase: a
+    checkpoint with SWA and best_mesh.obj) over its tree of 16 test photos:
+    ``cli.test``, ``show_camera``, ``show_rainbow2``, ``single_img`` on one
+    photo (``--corrupt none`` and ``salt``), ``test_cub30``, ``test_pck``
+    (over keypoint files this writes for the photos) and ``test_thu`` (over
+    a THuman2 tree this writes).  Each must write its files, print its
+    seconds, and launch its renders' K1 and K3.  cli.test's arrays of four
+    photos are held to a CPU run of the same eval step on the same
+    checkpoint -> the kernel launches of all of them."""
+    work = os.path.dirname(os.path.dirname(outf))
+    data = os.path.join(work, "data")
+    argv = ["--name", os.path.basename(outf), "--dataroot", data]
+    t_phase = time.perf_counter()
+    total, lines = {}, []
+
+    def record(cli, seconds, launches, line, **fields):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        lines.append(line)
+        emit("eval_cli", cli=cli, card=card, seconds=seconds, launches=launches,
+             cli_seconds=json.loads(line.split("seconds: ", 1)[1]), **fields)
+
+    def renders(n):
+        return {"raster_fwd": n, "texture_fwd": n}
+
+    # cli.test at b32 (the run's flags), the random views drawn here so that
+    # the CPU can take the same; its writes kept for the comparison
+    saved, real_save = [], cli_test.save_images_parallel
+    cli_test.save_images_parallel = lambda pairs, workers=4: (saved.extend(pairs),
+                                                              real_save(pairs, workers))
+    u = torch.rand(32, generator=torch.Generator(device=DEV).manual_seed(SEED + 90), device=DEV)
+    draws = -(u * 360.0 - 180.0)
+    try:
+        result, seconds, launches, line = eval_cli("test", cli_test.main, argv, work,
+                                                   draws=[draws])
+    finally:
+        cli_test.save_images_parallel = real_save
+    files = {d: len(os.listdir(os.path.join(outf, "fid", d))) for d in TEST_FILES}
+    with open(os.path.join(outf, "result.txt")) as fp:
+        final = [ln for ln in fp.read().splitlines() if ln.startswith("Final")]
+    with np.load(os.path.join(outf, "hist.png.npz")) as z:
+        hist = {k: z[k] for k in z.files}
+    record("test", seconds, launches, line, files=files, ssim=result["ssim"],
+           mask_iou=result["mask_iou"], fid=result["fid"], images=result["images"],
+           images_per_s_through_loader=result["images"] / result["seconds"]["encode_render"])
+    require(launches == renders(5), launches)
+    require(files == TEST_FILES and len(final) == 5, (files, final))
+    require(all(math.isfinite(v) for v in [result["ssim"], result["mask_iou"], *result["fid"]]),
+            result)
+    require(sorted(hist) == sorted(["azimuths", "elevations", "distances", "bias_x", "bias_y",
+                                    "delta_norm"]) and all(v.shape == (32,) for v in hist.values()),
+            {k: v.shape for k, v in hist.items()})
+
+    # the same eval step of four of the photos on the CPU, same checkpoint and draws
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            opt = cli_test.eval_options(argv)
+            rec_cpu = cli_test.load_reconstructor(opt, "cpu")
+            items = [cli_test.pick_dataset(opt)[i] for i in range(4)]
+    finally:
+        os.chdir(cwd)
+    photos = torch.as_tensor(np.stack([it["images"] for it in items]))
+    outs_cpu = rec_cpu(photos, random_azimuths=draws[:4].cpu())
+    views_card = [np.stack([saved[8 * b + k][0] for b in range(4)]) for k in range(5)]
+    alpha_card = np.stack([saved[8 * b + 5][0] for b in range(4)])
+    card_r, cpu_r = [], []
+    for k, view in enumerate(views_card):  # rgb, and the reconstruction's alpha
+        a, b = np.zeros(view.shape[:3] + (4,), np.float32), outs_cpu[k].numpy().copy()
+        a[..., :3] = view
+        if k == 0:
+            a[..., 3] = alpha_card
+        else:
+            b[..., 3] = 0.0
+        card_r.append(a)
+        cpu_r.append(b)
+    rstats = parity.render_stats(cpu_r, card_r)
+    cams = {k: float(np.abs(hist[k][:4] - v).max()) for k, v in
+            cli_test.camera_stats(outs_cpu[5]).items()}
+    cams["azimuths"] = float(np.abs((hist["azimuths"][:4] - outs_cpu[5]["azimuths"].numpy()
+                                     + 180.0) % 360.0 - 180.0).max())
+    emit("eval_test_gpu_vs_cpu", card=card, photos=4, seconds=time.perf_counter() - t0,
+         camera_max=cams, **rstats)
+    parity.check_renders(rstats, rgb_flip_pixels=4)
+    for k, err in cams.items():
+        require(err <= parity.SLICE_TOL["angle_deg" if k in ("azimuths", "elevations")
+                                         else "attr"], (k, err))
+    del rec_cpu, saved
+
+    # show_camera: an encode and one render a batch
+    result, seconds, launches, line = eval_cli("show_camera", cli_show_camera.main, argv, work)
+    with np.load(os.path.join(outf, "camera_hist.png.npz")) as z:
+        shapes = {k: z[k].shape for k in z.files}
+    record("show_camera", seconds, launches, line, shapes=shapes)
+    require(launches == renders(1) and len(shapes) == 5
+            and all(v == (32,) for v in shapes.values()), (launches, shapes))
+
+    # show_rainbow2: the eval step, the rainbow (one render a frame), the bias
+    # frames and the three sweeps
+    result, seconds, launches, line = eval_cli("show_rainbow2", cli_show_rainbow2.main, argv,
+                                               work)
+    gifs = {g: gif_frames(os.path.join(outf, g)) for g in RAINBOW_GIFS}
+    missing = [f for f in RAINBOW_FILES if not os.path.isfile(os.path.join(outf, f))]
+    record("show_rainbow2", seconds, launches, line, gif_frames=gifs, missing=missing)
+    require(launches == renders(5 + sum(RAINBOW_GIFS.values())), launches)
+    require(gifs == RAINBOW_GIFS and not missing, (gifs, missing))
+
+    # single_img on one photo, its mask clean and salted
+    test_dir = os.path.join(data, "test", "c0")
+    mask = sorted(f for f in os.listdir(test_dir) if f.endswith(".png"))[0]
+    photo = os.path.join(test_dir, mask[:-9] + ".jpg")
+    for corrupt in ("none", "salt"):
+        result, seconds, launches, line = eval_cli(
+            "single_img", cli_single_img.main,
+            argv[:2] + ["--img", photo, "--mask", os.path.join(test_dir, mask),
+                        "--corrupt", corrupt], work)
+        panel = read_image(os.path.join(work, result["panel"]))
+        frames = gif_frames(os.path.join(work, result["gif"]))
+        record("single_img", seconds, launches, line, corrupt=corrupt,
+               panel_shape=list(panel.shape), gif_frames=frames)
+        require(launches == renders(5) and panel.shape == (128, 6 * 128, 3) and frames == 36,
+                (launches, panel.shape, frames))
+
+    # test_cub30: 12 renders a batch, 12 FIDs against the photos
+    result, seconds, launches, line = eval_cli("test_cub30", cli_test_cub30.main, argv, work)
+    files = {d: len(os.listdir(os.path.join(outf, "fid30", d)))
+             for d in os.listdir(os.path.join(outf, "fid30"))}
+    record("test_cub30", seconds, launches, line, files=files, fid=result["fid"],
+           mean_fid=result["mean_fid"])
+    require(launches == renders(12), launches)
+    require(len(files) == 13 and set(files.values()) == {16}, files)
+    require(len(result["fid"]) == 12 and all(map(math.isfinite, result["fid"])), result["fid"])
+
+    # test_pck over keypoints at pixels of the photos' masks: encodes only
+    cub_root = os.path.join(work, "CUB_200_2011")
+    shutil.rmtree(cub_root, ignore_errors=True)
+    keypoint_files(cub_root, data)
+    result, seconds, launches, line = eval_cli("test_pck", cli_test_pck.main,
+                                               argv + ["--cub_root", cub_root], work)
+    record("test_pck", seconds, launches, line, pck=result["pck"], pairs=result["pairs"])
+    require(not launches and result["pairs"] == 16, (launches, result["pairs"]))
+    require(all(0.0 <= v <= 1.0 for v in result["pck"].values()), result["pck"])
+
+    # test_thu over a THuman2 tree of the template's own renders and normals
+    thu = os.path.join(work, "thuman2")
+    shutil.rmtree(thu, ignore_errors=True)
+    thuman_tree(thu, 16)
+    result, seconds, launches, line = eval_cli("test_thu", cli_test_thu.main,
+                                               argv[:2] + ["--dataroot", thu], work)
+    record("test_thu", seconds, launches, line, mse=result["mse"], batches=result["batches"],
+           images=result["images"])
+    require(launches == renders(1) and result["images"] == 16, (launches, result))
+    require(math.isfinite(result["mse"]) and 0.0 <= result["mse"] <= 4.0, result["mse"])
+
+    emit("eval_clis", card=card, seconds=time.perf_counter() - t_phase, launches=total)
+    return total
+
+
 def recipe_photos(dr, batch, seed, elev_range, distances):
     """RGBA photos for the recipes: the template under smooth random
     textures at bench.py's cameras (the elevations mapped onto
@@ -1595,7 +1867,10 @@ def main(profile_steps=0):
     frontend_launches, argv, outf = frontend_phase(card)
     torch.cuda.empty_cache()
     trainer_phase(card, argv, outf)
-    # 10. the three published recipes through their CLIs
+    # 10. the evaluation and serving CLIs on that run
+    torch.cuda.empty_cache()
+    eval_launches = eval_clis_phase(card, outf)
+    # 11. the three published recipes through their CLIs
     torch.cuda.empty_cache()
     recipe_launches = recipes_phase(card)
 
@@ -1645,6 +1920,7 @@ def main(profile_steps=0):
             "launches_serving": serve_launches[config][name] if config else 0,
             "launches_frontend": frontend_launches.get(name, 0),
             "launches_recipes": recipe_launches.get(name, 0),
+            "launches_eval_clis": eval_launches.get(name, 0),
             "max_abs_err": errs[counted], "ms": t[f"{timed}_ms"],
             "warm_ms": t[f"{timed}_warm_ms"],
             "plain_ms": t[f"{timed}_plain_ms"], "bound_ms": t[f"{timed}_bound_ms"],

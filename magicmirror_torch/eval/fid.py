@@ -3,10 +3,16 @@
 (on the card unless the caller asks for another device) -> mean and
 covariance -> the Frechet distance, with scipy's ``sqrtm`` on the host and
 pytorch-fid's rule for a singular product (retry with eps on the
-diagonal)."""
+diagonal).  ``fids_against`` takes several FIDs against one reference
+directory: its statistics once, the distances at once in processes of
+their own (this module run as ``__main__`` computes one).
+"""
 from __future__ import annotations
 
 import os
+import subprocess
+import sys
+import tempfile
 import warnings
 
 import numpy as np
@@ -92,3 +98,66 @@ def calculate_fid_given_paths(paths, batch_size: int = 64, model=None, weights_p
              for p in paths]
     return float(calculate_frechet_distance(stats[0][0], stats[0][1], stats[1][0],
                                             stats[1][1]))
+
+
+# the variables that size the BLAS thread pools, read when numpy loads
+_BLAS_THREADS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS",
+                 "BLIS_NUM_THREADS")
+_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def frechet_distances(ref_stats, stats) -> list[float]:
+    """The Frechet distance of each (mu, sigma) of ``stats`` to
+    ``ref_stats``.  One is computed here; several at once, each in a Python
+    process of its own (``python -m magicmirror_torch.eval.fid REF JOB``,
+    the statistics passed in npz files) with an equal share of the CPUs as
+    its BLAS threads: a distance is a ``sqrtm`` of a 2,048^2 product, seconds
+    of the host, and in threads of one process several run no faster than
+    one after another.  (On an H100's host of 8 CPUs, three at once took
+    25-28 s where three in a row took 32-40 s.)"""
+    if len(stats) <= 1:
+        return [float(calculate_frechet_distance(*ref_stats, *s)) for s in stats]
+    threads = str(max(1, (os.cpu_count() or 1) // len(stats)))
+    env = {**os.environ, **dict.fromkeys(_BLAS_THREADS, threads),
+           "PYTHONPATH": os.pathsep.join(filter(None, [_PACKAGE_ROOT,
+                                                       os.environ.get("PYTHONPATH")]))}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.npz")
+        np.savez(ref, mu=ref_stats[0], sigma=ref_stats[1])
+        jobs = [os.path.join(tmp, f"{i}.npz") for i in range(len(stats))]
+        for job, (mu, sigma) in zip(jobs, stats):
+            np.savez(job, mu=mu, sigma=sigma)
+        procs = [subprocess.Popen([sys.executable, "-m", __name__, ref, job], env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for job in jobs]
+        results = [proc.communicate() for proc in procs]  # every process waited for
+    out = []
+    for proc, (stdout, stderr) in zip(procs, results):
+        if proc.returncode:
+            raise RuntimeError(f"the Frechet distance process failed: {stderr[-2000:]}")
+        out.append(float(stdout.split()[-1]))
+    return out
+
+
+def fids_against(ref_dir, dirs, batch_size: int = 64, model=None, weights_path=None,
+                 device="cuda") -> list[float]:
+    """The FID of each of ``dirs`` against ``ref_dir``, each the number
+    ``calculate_fid_given_paths([ref_dir, d])`` gives, with the reference's
+    statistics taken once and the distances computed at once
+    (:func:`frechet_distances`)."""
+    for p in (ref_dir, *dirs):
+        if not os.path.exists(p):
+            raise RuntimeError(f"Invalid path: {p}")
+    if model is None:
+        model = load_fid_weights(weights_path, resolve_device(device))
+    ref = calculate_activation_statistics(_list_images(ref_dir), model, batch_size)
+    stats = [calculate_activation_statistics(_list_images(d), model, batch_size)
+             for d in dirs]
+    return frechet_distances(ref, stats)
+
+
+if __name__ == "__main__":
+    # one distance of frechet_distances: REF and JOB are npz files of mu, sigma
+    stats = [np.load(path) for path in sys.argv[1:3]]
+    print(repr(float(calculate_frechet_distance(stats[0]["mu"], stats[0]["sigma"],
+                                                stats[1]["mu"], stats[1]["sigma"]))))

@@ -1,12 +1,13 @@
 """Image artifacts: grids, parallel writes of eval images, and a reader;
 the port of ``magicmirror/eval/images.py``.
 
-PNG (8-bit grey or RGB) is written and read by this module itself, with
-``zlib``, ``struct`` and numpy: the writer emits one IDAT with filter 0 on
-every row, the reader takes the five row filters of the PNG standard (what
-other writers emit).  A ``.jpg`` / ``.jpeg`` name is written as the JAX
-package writes it, JPEG at quality 100 through Pillow, imported inside the
-JPEG functions; where Pillow is missing they raise and name the file.
+PNG (8-bit grey or RGB, each with or without alpha) is written and read by
+this module itself, with ``zlib``, ``struct`` and numpy: the writer emits
+one IDAT with filter 0 on every row, the reader takes the five row filters
+of the PNG standard (what other writers emit).  A ``.jpg`` / ``.jpeg``
+name is written as the JAX package writes it, JPEG at quality 100 through
+Pillow, imported inside the JPEG functions; where Pillow is missing they
+raise and name the file.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3}  # colour type -> channels: grey, RGB
+# colour type -> channels: grey, RGB, grey + alpha, RGB + alpha
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 JPEG_SUFFIXES = (".jpg", ".jpeg")
 
 
@@ -48,13 +50,16 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def encode_png(arr: np.ndarray) -> bytes:
-    """(H, W) grey or (H, W, 3) RGB uint8 -> the bytes of a PNG file."""
+    """(H, W) grey or (H, W, C) uint8 (C = 2 grey + alpha, 3 RGB, 4 RGB +
+    alpha) -> the bytes of a PNG file."""
+    colours = {n: t for t, n in _PNG_CHANNELS.items()}
+    channels = 1 if arr.ndim == 2 else arr.shape[-1]
     if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or (arr.ndim == 3
-                                                         and arr.shape[2] != 3):
-        raise ValueError(f"PNG: expected (H, W) or (H, W, 3) uint8, got {arr.dtype} "
+                                                         and channels not in (2, 3, 4)):
+        raise ValueError(f"PNG: expected (H, W) or (H, W, 2 | 3 | 4) uint8, got {arr.dtype} "
                          f"{arr.shape}")
     h, w = arr.shape[:2]
-    colour = 0 if arr.ndim == 2 else 2
+    colour = colours[channels]
     rows = np.ascontiguousarray(arr).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)  # filter 0 a row
     header = struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0)
@@ -100,8 +105,8 @@ def _unfilter(data: bytes, h: int, w: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(blob: bytes) -> np.ndarray:
-    """The bytes of an 8-bit grey or RGB PNG (not interlaced) -> (H, W) or
-    (H, W, 3) uint8."""
+    """The bytes of an 8-bit grey or RGB PNG, with or without alpha (not
+    interlaced) -> (H, W) or (H, W, C) uint8, C = 2, 3 or 4."""
     if blob[:8] != _PNG_SIGNATURE:
         raise ValueError("PNG: bad signature")
     pos, idat, header = 8, [], None
@@ -117,8 +122,8 @@ def decode_png(blob: bytes) -> np.ndarray:
             break
     w, h, depth, colour, _, _, interlace = header
     if depth != 8 or colour not in _PNG_CHANNELS or interlace:
-        raise ValueError(f"PNG: only 8-bit grey or RGB without interlace, got depth "
-                         f"{depth}, colour type {colour}, interlace {interlace}")
+        raise ValueError(f"PNG: only 8-bit grey or RGB (+ alpha) without interlace, got "
+                         f"depth {depth}, colour type {colour}, interlace {interlace}")
     bpp = _PNG_CHANNELS[colour]
     pixels = _unfilter(zlib.decompress(b"".join(idat)), h, w, bpp)
     return pixels.reshape(h, w) if bpp == 1 else pixels.reshape(h, w, bpp)
@@ -150,12 +155,14 @@ def _to_grey(arr: np.ndarray) -> np.ndarray:
 
 def read_image(path: str, mode: str | None = None) -> np.ndarray:
     """A PNG or JPEG file -> uint8 array; ``mode`` "RGB" gives (H, W, 3),
-    "L" (H, W), as Pillow's ``convert`` does."""
+    "L" (H, W), as Pillow's ``convert`` does (an alpha channel dropped)."""
     if path.lower().endswith(JPEG_SUFFIXES):
         arr = _read_jpeg(path)
     else:
         with open(path, "rb") as fp:
             arr = decode_png(fp.read())
+    if mode in ("RGB", "L") and arr.ndim == 3 and arr.shape[-1] in (2, 4):
+        arr = arr[..., :-1] if arr.shape[-1] == 4 else arr[..., 0]  # drop the alpha
     if mode == "RGB" and arr.ndim == 2:
         arr = np.repeat(arr[..., None], 3, axis=-1)
     elif mode == "L" and arr.ndim == 3:

@@ -1,9 +1,12 @@
 """Run reporting, the port of ``magicmirror/eval/reports.py``: the scalar
-log (CSV, and TensorBoard too where ``torch.utils.tensorboard`` imports) and
-the append-only ``result.txt``."""
+log (CSV, and TensorBoard too where ``torch.utils.tensorboard`` imports),
+the append-only ``result.txt`` and the histograms of predicted attributes
+(npz always, the PNG where matplotlib imports)."""
 from __future__ import annotations
 
 import os
+
+import numpy as np
 
 
 class SummaryLogger:
@@ -42,3 +45,28 @@ class ResultLog:
     def write(self, line: str) -> None:
         with open(self.path, "a") as fp:
             fp.write(line if line.endswith("\n") else line + "\n")
+
+
+def save_histograms(stats: dict, path: str) -> None:
+    """The predicted attributes' values ``stats`` (name -> array) into
+    ``<path>.npz``, and where matplotlib imports (it is imported here, and
+    only here) one histogram of 20 bins a non-empty attribute into the PNG
+    ``path``."""
+    np.savez(path + ".npz", **{k: np.asarray(v) for k, v in stats.items()})
+    try:
+        import matplotlib
+    except ImportError:
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    keys = [k for k in stats if np.asarray(stats[k]).size > 0]
+    if not keys:
+        return
+    fig, axes = plt.subplots(1, len(keys), figsize=(4 * len(keys), 3), squeeze=False)
+    for ax, k in zip(axes[0], keys):
+        ax.hist(np.asarray(stats[k], np.float64).ravel(), bins=20)
+        ax.set_title(k)
+    fig.tight_layout()
+    fig.savefig(path if path.endswith(".png") else path + ".png")
+    plt.close(fig)

@@ -117,6 +117,20 @@ def unported_options(opt) -> list[str]:
     return unported
 
 
+def serve_options(namespace) -> ServeOptions:
+    """``ServeOptions`` from the parsed flags (``configs.flags``, or a run's
+    opts.yaml read into them): its own fields taken as they are, every
+    other flag (the train step's, the CLI's) left out; a setting outside the
+    port's encoder (:func:`unported_options`) raises."""
+    values = vars(namespace)
+    opt = ServeOptions(**{f.name: values[f.name] for f in dataclasses.fields(ServeOptions)
+                          if f.name in values})
+    unported = unported_options(opt)
+    if unported:
+        raise NotImplementedError(f"options outside the port: {', '.join(unported)}")
+    return opt
+
+
 def build_models(opt, diff_render: DiffRender, device="cuda") -> AttributeEncoder:
     """netE for ``opt`` (``ServeOptions`` or ``TrainOptions``) with its weights
     at their init, in eval mode, on the card unless ``device`` names another

@@ -4,8 +4,10 @@ warm-up, the ``train_shape`` policy and the learning-rate schedule; SWA and
 its BatchNorm refresh; every 10 epochs the artifacts (grids, meshes, the
 texture, three camera-sweep GIFs); every 20 the test eval (with and without
 SWA once SWA runs): renders through ``serve.Reconstructor``, the files
-written, SSIM and mask-IoU over the written files, three FIDs, ``result.txt``
-and the checkpoints; and the EM template update before ``swa_start``.
+written, SSIM and mask-IoU over the written files, three FIDs against the
+photos (``eval/fid.py::fids_against``: the photos' statistics once, the
+three distances at once), ``result.txt`` and the checkpoints; and the EM
+template update before ``swa_start``.
 
     trainer(opt, train_dl, test_dl, noaug_dl, outf)           # on the card
 
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..eval.fid import calculate_fid_given_paths
+from ..eval.fid import fids_against
 from ..eval.gifs import azimuth_sweep, distance_sweep, elevation_sweep
 from ..eval.images import read_image, resize_bicubic, save_image_grid, save_images_parallel
 from ..eval.inception import fid_weights_available, load_fid_weights
@@ -297,10 +299,8 @@ def trainer(opt, train_dl, test_dl, noaug_dl, outf, device="cuda", timings=None)
                     t0 = time.perf_counter()
                     if fid_model is None:
                         fid_model = load_fid_weights(device=device)
-                    ori, rec_d, inter, inter90 = dirs[:4]
-                    fid_recon = calculate_fid_given_paths([ori, rec_d], 64, model=fid_model)
-                    fid_inter = calculate_fid_given_paths([ori, inter], 64, model=fid_model)
-                    fid_90 = calculate_fid_given_paths([ori, inter90], 64, model=fid_model)
+                    fid_recon, fid_inter, fid_90 = fids_against(dirs[0], dirs[1:4], 64,
+                                                                model=fid_model)
                     ev["fid_s"] = time.perf_counter() - t0
                     times["eval"].append(ev)
                     print("Epoch %03d fid recon/rot/rot90: %0.2f %0.2f %0.2f"

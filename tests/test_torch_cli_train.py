@@ -30,8 +30,8 @@ torch.set_num_threads(1)
 def test_cli_trains_one_epoch_from_a_cub_tree(tmp_path, monkeypatch):
     root = cub_tree(tmp_path / "cub")
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(trainer_mod, "calculate_fid_given_paths",
-                        lambda paths, batch_size, **kw: 123.0)
+    monkeypatch.setattr(trainer_mod, "fids_against",
+                        lambda ref, dirs, batch_size, **kw: [123.0] * len(dirs))
     monkeypatch.setattr(trainer_mod, "load_fid_weights", lambda **kw: None)
     argv = ["--name", "v", "--dataroot", root, "--imageSize", "32", "--batchSize", "2",
             "--niter", "0", "--scheduler", "exp", "--warm_epoch", "1", "--pretrains", "none",

@@ -101,8 +101,8 @@ def run_cli(main, argv, defaults, tmp_path, monkeypatch):
     """``main(argv, device="cpu")`` in ``tmp_path`` with FID stubbed ->
     (state, the run's directory); opts.yaml as the CLI's parser makes it."""
     monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(trainer_mod, "calculate_fid_given_paths",
-                        lambda paths, batch_size, **kw: 123.0)
+    monkeypatch.setattr(trainer_mod, "fids_against",
+                        lambda ref, dirs, batch_size, **kw: [123.0] * len(dirs))
     monkeypatch.setattr(trainer_mod, "load_fid_weights", lambda **kw: None)
     launches = dict(kernels.LAUNCHES)
     state = main(argv, device="cpu")

@@ -140,14 +140,16 @@ def test_options_outside_the_port_raise(change):
 
 
 def test_port_imports_without_jax_flax_yaml_or_pil():
-    """Every module of the port imports with JAX, Flax, optax, yaml, Pillow,
-    imageio, TensorBoard and the JAX package blocked (the card's machine has
-    none of them; Pillow is reached only by a .jpg name, inside a function)."""
+    """Every module of the port imports with JAX, Flax, optax, orbax, yaml,
+    Pillow, imageio, matplotlib, TensorBoard and the JAX package blocked
+    (the card's machine has none of them but Pillow and yaml, which the port
+    reaches only inside the functions that decode a JPEG, blur a mask or
+    read and write opts.yaml; matplotlib only where it draws a histogram)."""
     names = [m.name for m in pkgutil.walk_packages(magicmirror_torch.__path__,
                                                    "magicmirror_torch.")]
     code = ("import sys\n"
-            "for blocked in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'PIL', 'imageio',\n"
-            "                'tensorboard', 'magicmirror'):\n"
+            "for blocked in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', 'PIL',\n"
+            "                'imageio', 'matplotlib', 'tensorboard', 'magicmirror'):\n"
             "    sys.modules[blocked] = None\n"
             "import importlib\n"
             f"for name in {names!r}:\n"
@@ -164,7 +166,9 @@ def test_port_imports_without_jax_flax_yaml_or_pil():
                    "benchmarks.timing", "benchmarks.kernel_times", "data", "data.base",
                    "data.cub", "data.loader", "data.market", "data.atr", "data.atr2",
                    "configs", "configs.flags", "configs.recipes", "cli", "cli.train",
-                   "cli.train_market", "cli.train_atr", "cli.train_atr2"):
+                   "cli.train_market", "cli.train_atr", "cli.train_atr2", "train.convert_jax",
+                   "data.thuman2", "eval.pck", "cli.test", "cli.single_img", "cli.show_camera",
+                   "cli.show_rainbow2", "cli.test_cub30", "cli.test_thu", "cli.test_pck"):
         assert f"magicmirror_torch.{module}" in names, module
     for name in names:  # and they import here too
         importlib.import_module(name)

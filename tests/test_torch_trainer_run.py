@@ -61,8 +61,8 @@ def photo_batches(n_batches, first, seed):
 
 
 def test_trainer_two_epochs_writes_the_reference_artifacts(tmp_path, monkeypatch):
-    monkeypatch.setattr(trainer_mod, "calculate_fid_given_paths",
-                        lambda paths, batch_size, **kw: 123.0)
+    monkeypatch.setattr(trainer_mod, "fids_against",
+                        lambda ref, dirs, batch_size, **kw: [123.0] * len(dirs))
     monkeypatch.setattr(trainer_mod, "load_fid_weights", lambda **kw: None)
     opt = TrainOptions(template_path=SPHERE, imageSize=S, batchSize=B, pretrains="none",
                        pretraint="none", niter=1, warm_epoch=1, swa_start=1, swa_interval=1,

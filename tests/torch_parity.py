@@ -106,3 +106,140 @@ def assert_close(out, ref, tol):
     ref = np.asarray(ref)
     assert n(out).shape == ref.shape
     assert np.abs(n(out) - ref).max() <= tol * np.abs(ref).max()
+
+
+DRYRUN = os.path.join(REPO, "template", "sphere_dryrun.obj")
+# the tiny model of the eval CLIs' tests: the 80-face sphere at 32^2, batch 2
+TINY_FLAGS = ["--imageSize", "32", "--batchSize", "2", "--pretrains", "none",
+              "--pretraint", "none", "--template_path", DRYRUN, "--workers", "1"]
+
+
+def zeros_train_state(*args, **kwargs):
+    """``create_train_state``'s structure and shapes, zeros: what a restore
+    overwrites, without compiling the model's init."""
+    from magicmirror.train.state import create_train_state
+
+    shapes = jax.eval_shape(lambda: create_train_state(*args, **kwargs))
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+
+
+def _random_opt_state(shapes, rs):
+    """An optimizer state of ``shapes``: mu N(0, 1e-3), nu and nu_max
+    positive, count 7."""
+    def fill(path, s):
+        name = str(getattr(path[-1], "name", path[-1]))
+        if name == "count":
+            return np.asarray(7, s.dtype)
+        a = rs.randn(*s.shape) * 1e-3
+        return (a if name == "mu" else a * a).astype(s.dtype)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_run(root, name="clitest", dataroot="", extra=(), seed=0):
+    """A finished run of the JAX package in ``root``: ``log/<name>/opts.yaml``
+    (the tiny model's flags and ``extra``), and in ``ckpts/`` ``best_ckpt``
+    (saved by the JAX package's CheckpointManager) and ``best_mesh.obj``.
+    The state has create_train_state's structure with random numbers in it:
+    BatchNorm statistics, optimizer moments (count 7), a moved template, a
+    SWA average taken by one ``swa_update`` before the live parameters were
+    drawn anew -> (the JAX options, the saved state as a numpy tree)."""
+    from magicmirror.configs.flags import build_parser, save_options
+    from magicmirror.render.renderer import DiffRender as JDiffRender
+    from magicmirror.train.checkpoints import CheckpointManager
+    from magicmirror.train.optim import make_optimizer_d, make_optimizer_e
+    from magicmirror.train.state import swa_update
+    from magicmirror.train.trainer import build_models
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        opt = build_parser().parse_args(["--name", name, "--dataroot", dataroot,
+                                         *TINY_FLAGS, *extra])
+        opt.outf = "./log/" + name
+        os.makedirs(opt.outf, exist_ok=True)
+        save_options(opt)
+        H = round(opt.ratio * opt.imageSize)
+        dr = JDiffRender(opt.template_path, opt.imageSize, ratio=opt.ratio,
+                         init_ellipsoid=opt.ellipsoid)
+        netE, netD = build_models(opt, dr)
+        shapes = zeros_train_state(jax.random.PRNGKey(0), netE, netD, make_optimizer_e(),
+                                   make_optimizer_d(), np.zeros((1, H, opt.imageSize, 4),
+                                                                np.float32),
+                                   dr.vertices_init, dr.vertices_laplacian_matrix)
+        rs = np.random.RandomState(seed)
+        enc = [random_variables({"params": shapes.params_e, "batch_stats": shapes.stats_e},
+                                seed + i) for i in (1, 2)]
+        state = shapes.replace(
+            params_e=enc[0]["params"], stats_e=enc[0]["batch_stats"],
+            params_d=random_variables({"params": shapes.params_d}, seed + 3)["params"],
+            opt_state_e=_random_opt_state(shapes.opt_state_e, rs),
+            opt_state_d=_random_opt_state(shapes.opt_state_d, rs),
+            template=(np.asarray(dr.vertices_init)
+                      + 0.01 * rs.randn(*shapes.template.shape)).astype(np.float32),
+            em_step=np.float32(0.0970299), swa_n=np.int32(0), epoch=np.int32(5),
+            step=np.int32(123))
+        state = swa_update(state)
+        state = as_numpy_tree(state.replace(params_e=enc[1]["params"],
+                                            stats_e=enc[1]["batch_stats"]))
+        mgr = CheckpointManager(os.path.join(opt.outf, "ckpts"))
+        mgr.save("best_ckpt", state, epoch=3)
+        mgr.save_best_mesh(state.template, np.asarray(dr.faces), dr.uvs)
+    finally:
+        os.chdir(cwd)
+    return opt, state
+
+
+def export_jax_checkpoint(ckpt_dir, name, out_npz):
+    """The JAX package's orbax checkpoint ``ckpt_dir/name`` (restored
+    without a target: nested dicts and lists of arrays) -> ``out_npz``, one
+    array a leaf under its ``/``-joined tree path (``state/params_e/...``,
+    ``state/opt_state_e/0/mu``, ``epoch``), the input of ``python -m
+    magicmirror_torch.train.convert_jax``.  Needs jax and orbax."""
+    import orbax.checkpoint as ocp
+
+    payload = ocp.StandardCheckpointer().restore(os.path.abspath(os.path.join(ckpt_dir, name)))
+    flat = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            if node is not None:
+                flat["/".join(path)] = np.asarray(node)
+            return
+        for key, value in items:
+            walk(value, path + (str(key),))
+
+    walk(payload, ())
+    np.savez(out_npz, **flat)
+    return out_npz
+
+
+def port_run(jax_root, root, name="clitest", ckpt="best_ckpt"):
+    """The JAX run ``name`` of ``jax_root`` brought into the port in ``root``:
+    its opts.yaml and best_mesh.obj copied, its best_ckpt exported
+    (``export_jax_checkpoint``) and converted by ``python -m
+    magicmirror_torch.train.convert_jax`` into ``ckpts/<ckpt>`` -> the
+    converted checkpoint's path."""
+    import shutil
+
+    from magicmirror_torch.train import convert_jax
+
+    jax_root, root = os.path.abspath(jax_root), os.path.abspath(root)
+    src, dst = (os.path.join(r, "log", name) for r in (jax_root, root))
+    os.makedirs(os.path.join(dst, "ckpts"), exist_ok=True)
+    shutil.copy(os.path.join(src, "opts.yaml"), dst)
+    shutil.copy(os.path.join(src, "ckpts", "best_mesh.obj"), os.path.join(dst, "ckpts"))
+    npz = export_jax_checkpoint(os.path.join(src, "ckpts"), "best_ckpt",
+                                os.path.join(root, "jax_payload.npz"))
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        path = convert_jax.main(["--npz", npz, "--name", name, "--ckpt", ckpt])
+    finally:
+        os.chdir(cwd)
+    os.remove(npz)
+    return os.path.join(root, path)
