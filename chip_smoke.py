@@ -85,7 +85,16 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      opts.yaml, steps, artifacts, fid/ files, the kernel launches (three
      renders a step with the hard view, K2 and K4 where the step's
      train_shape leaves a gradient), the trained encoder's background; then
-     serving and the train step of each recipe at b48 (fresh model), timed.
+     serving and the train step of each recipe at b48 (fresh model), timed;
+ 12. the last entry points and tools: generate_market on the Market
+     recipe's run (its 96 train photos, b48, 128x64) in each mode (the
+     default, --texture_swap, --new_class9, --poisson): the files, K1 and K3
+     four times a batch (nine in the new-class mode), and one batch of four
+     photos card vs CPU; template_animation on the front end's run (one
+     hard-mode render, sigmainv 1e6, a template) with those renders, and K1
+     at 1e6 at b32, held to the plain versions; the data preparation,
+     data/native.py, the Poisson blend and cli.tools on trees written into
+     build/tools_smoke, each output held to a second computation in numpy.
 Phase 3 also holds K1-K4 at the recipes' shapes at b48 (128^2, 128x64,
 160x96) against their plain versions, and phase 5 one step of the Market
 recipe at b4, 128x64, on the card against the CPU.
@@ -117,21 +126,27 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
 
 from magicmirror_torch import kernels, parity  # noqa: E402
+from magicmirror_torch.cli import generate_market as cli_generate_market  # noqa: E402
 from magicmirror_torch.cli import show_camera as cli_show_camera  # noqa: E402
 from magicmirror_torch.cli import show_rainbow2 as cli_show_rainbow2  # noqa: E402
 from magicmirror_torch.cli import single_img as cli_single_img  # noqa: E402
+from magicmirror_torch.cli import template_animation as cli_template_animation  # noqa: E402
 from magicmirror_torch.cli import test as cli_test  # noqa: E402
 from magicmirror_torch.cli import test_cub30 as cli_test_cub30  # noqa: E402
 from magicmirror_torch.cli import test_pck as cli_test_pck  # noqa: E402
 from magicmirror_torch.cli import test_thu as cli_test_thu  # noqa: E402
+from magicmirror_torch.cli import tools as cli_tools  # noqa: E402
 from magicmirror_torch.cli import train as cli_train  # noqa: E402
 from magicmirror_torch.cli import train_atr2 as cli_train_atr2  # noqa: E402
 from magicmirror_torch.cli import train_market as cli_train_market  # noqa: E402
 from magicmirror_torch.configs import flags  # noqa: E402
 from magicmirror_torch.configs.recipes import CLI_DEFAULTS, RECIPES, recipe_flags  # noqa: E402
 from magicmirror_torch.data import atr as atr_data  # noqa: E402
+from magicmirror_torch.data import native, prepare  # noqa: E402
 from magicmirror_torch.eval.images import (decode_png, encode_png, read_image,  # noqa: E402
                                            save_array_image, to_uint8)
+from magicmirror_torch.eval.poisson import poisson_edit  # noqa: E402
+from magicmirror_torch.geometry.obj_io import load_obj  # noqa: E402
 from magicmirror_torch.kernels import build  # noqa: E402
 from magicmirror_torch.losses import recon  # noqa: E402
 from magicmirror_torch.models.attribute_encoder import (CAMERA_FROZEN,  # noqa: E402
@@ -149,6 +164,7 @@ from magicmirror_torch.ops.sampling import (TEXTURE_PARTS_LEVELS,  # noqa: E402
                                             texture_backward_plain,
                                             texture_bwd, texture_fwd, texture_mapping_plain,
                                             texture_render, texture_render_plain)
+from magicmirror_torch.render import renderer as renderer_module  # noqa: E402
 from magicmirror_torch.render.renderer import DiffRender  # noqa: E402
 from magicmirror_torch.render.synthetic import (bench_attributes,  # noqa: E402
                                                smooth_random, to_torch)
@@ -1750,6 +1766,369 @@ def recipe_step_gpu_vs_cpu():
     train_step_gpu_vs_cpu(dr, dr_cpu, photos, topt, "recipe_market")
 
 
+# the modes of generate_market: flags, and renders a batch (K1 and K3 each)
+GENERATE_MODES = {"default": ([], 4), "texture_swap": (["--texture_swap"], 4),
+                  "new_class9": (["--new_class9"], 9), "poisson": (["--poisson"], 4)}
+
+
+def files_under(root):
+    return sorted(os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs)
+
+
+def generate_market_phase(card):
+    """``cli.generate_market`` on the Market recipe's run (the `recipes`
+    phase's: --bg, b48, 128x64, sphere.obj at ellipsoid 2, hr18sv2 / res34)
+    over its 96 train photos in each mode: every expected file written and
+    decodable, K1 and K3 four times a batch (nine in the new-class mode) and
+    no other kernel; then one batch of four photos, the default mode, on
+    the card and on the CPU, the composites held to the slice's card-vs-CPU
+    rules -> the kernel launches of the four runs."""
+    work = os.path.join(ROOT, "build", "recipes_smoke", "recipe_market")
+    dataroot = os.path.join(work, "data", "seg_hmr")
+    stems = sorted(os.path.basename(p).rsplit("_", 1)[0] for p in
+                   files_under(os.path.join(dataroot, "train_all")))
+    n = len(stems)
+    total = {}
+    for mode, (flags_, renders) in GENERATE_MODES.items():
+        out = os.path.join(ROOT, "build", "tools_smoke", mode)
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["--name", "smoke", "--dataroot", dataroot, "--batchSize", "48", "--out", out,
+                *flags_]
+        result, seconds, launches, line = eval_cli("generate_market", cli_generate_market.main,
+                                                   argv, work)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        written, on_disk = sorted(set(result["files"])), files_under(out)
+        if mode == "new_class9":  # pair folders; a pair of one id writes nothing
+            ok = (0.8 * 9 * n <= len(result["files"]) <= 9 * n and all(
+                os.path.basename(f) in ("-45.jpg", "000.jpg", "045.jpg") for f in written))
+        else:
+            ok = written == sorted(os.path.join(out, "hq", "pytorch", "0001", f"{s}_az{d}.jpg")
+                                   for s in stems for d in cli_generate_market.AZIMUTH_DELTAS)
+            ok = ok and len(result["files"]) == 4 * n
+        shapes = {read_image(f).shape for f in on_disk}
+        emit("generate_market", mode=mode, card=card, photos=result["images"], seconds=seconds,
+             cli_seconds=json.loads(line.split("seconds: ", 1)[1]),
+             images_per_s_through_loader=result["images_per_s"], files=len(on_disk),
+             writes=len(result["files"]), launches=launches)
+        batches = math.ceil(n / 48)
+        require(launches == {"raster_fwd": renders * batches, "texture_fwd": renders * batches},
+                (mode, launches))
+        require(ok and on_disk == written and shapes == {(128, 64, 3)},
+                (mode, len(written), len(on_disk), shapes))
+
+    # one batch of four photos on the card and on the CPU, the composites kept
+    sub = os.path.join(ROOT, "build", "tools_smoke", "sub")
+    shutil.rmtree(sub, ignore_errors=True)
+    for kind in ("seg_hmr", "pytorch"):
+        src = os.path.join(work, "data", kind, "train_all", "0001")
+        dst = os.path.join(sub, kind, "train_all", "0001")
+        os.makedirs(dst)
+        for name in sorted(os.listdir(src))[:4]:
+            shutil.copy(os.path.join(src, name), dst)
+    composites, real_save = {}, cli_generate_market.save_array_image
+    t0 = time.perf_counter()
+    try:
+        for label, dev in (("card", DEV), ("cpu", torch.device("cpu"))):
+            store = composites.setdefault(label, {})
+            cli_generate_market.save_array_image = lambda img, path, store=store: store.update(
+                {os.path.basename(path): np.array(img, np.float32)})
+            argv = ["--name", "smoke", "--dataroot", os.path.join(sub, "seg_hmr"),
+                    "--batchSize", "4", "--out", os.path.join(sub, "out_" + label)]
+            cwd = os.getcwd()
+            os.chdir(work)
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli_generate_market.main(argv, device=dev)
+            finally:
+                os.chdir(cwd)
+    finally:
+        cli_generate_market.save_array_image = real_save
+    names = sorted(composites["cpu"])
+    card_r, cpu_r = (np.stack([composites[k][f] for f in names]) for k in ("card", "cpu"))
+    rstats = parity.render_stats(  # rgb only: alpha 0 on both sides
+        [np.concatenate([cpu_r, np.zeros_like(cpu_r[..., :1])], -1)],
+        [np.concatenate([card_r, np.zeros_like(card_r[..., :1])], -1)])
+    emit("generate_market_gpu_vs_cpu", card=card, photos=4, composites=len(names),
+         seconds=time.perf_counter() - t0, **rstats)
+    require(sorted(composites["card"]) == names and len(names) == 16, names)
+    parity.check_renders(rstats, rgb_flip_pixels=4)
+    return total
+
+
+@contextlib.contextmanager
+def plain_render():
+    """DiffRender.render through the plain versions of K1 and K3, on the
+    same tensors."""
+    saved = renderer_module.rasterize_fused, renderer_module.texture_render
+    renderer_module.rasterize_fused = rasterize_fused_plain
+    renderer_module.texture_render = texture_render_plain
+    try:
+        yield
+    finally:
+        renderer_module.rasterize_fused, renderer_module.texture_render = saved
+
+
+def template_animation_phase(card, outf):
+    """``cli.template_animation`` over the templates of this script's runs
+    (128^2): a run directory (build/tools_smoke/anim) with the front end's
+    opts.yaml and, as epochs 0, 1, 2..., the front end's
+    epoch_000_template.obj (its artifacts come every 10 epochs), its
+    ckpts/best_mesh.obj (after the trainer phase's EM update) and each
+    recipe run's epoch_000_template.obj: one hard-mode render (sigmainv
+    1e6) a template, the GIF's frames and the strip.  Then the same renders,
+    and each template at 8 azimuths, against the plain versions of K1 and
+    K3 on the card, and K1 alone at 1e6 at b32 / 128^2 against its plain
+    version (the rasterizer's rules, and the renders' on one device: no rgb
+    value past its cap) -> the kernel launches of the CLI."""
+    anim = os.path.join(ROOT, "build", "tools_smoke", "anim", "log", "smoke")
+    shutil.rmtree(os.path.dirname(os.path.dirname(anim)), ignore_errors=True)
+    os.makedirs(anim)
+    shutil.copy(os.path.join(outf, "opts.yaml"), anim)
+    sources = [os.path.join(outf, "epoch_000_template.obj"),
+               os.path.join(outf, "ckpts", "best_mesh.obj")]
+    sources += [p for p in (os.path.join(ROOT, "build", "recipes_smoke", name, "log", "smoke",
+                                         "epoch_000_template.obj") for name in RECIPES)
+                if os.path.isfile(p)]
+    objs = [f"epoch_{k:03d}_template.obj" for k in range(len(sources))]
+    for src, name in zip(sources, objs):
+        shutil.copy(src, os.path.join(anim, name))
+    work = os.path.dirname(os.path.dirname(anim))
+    result, seconds, launches, line = eval_cli("template_animation",
+                                               cli_template_animation.main, ["--name", "smoke"],
+                                               work)
+    frames = gif_frames(os.path.join(work, result["gif"]))
+    strip = read_image(os.path.join(work, result["png"]))
+    emit("template_animation", card=card, templates=len(objs), frames=frames,
+         strip_shape=list(strip.shape), seconds=seconds,
+         cli_seconds=json.loads(line.split("seconds: ", 1)[1]), launches=launches)
+    require(len(objs) >= 3 and result["frames"] == frames == len(objs), (objs, frames))
+    require(launches == {"raster_fwd": len(objs), "texture_fwd": len(objs)}, launches)
+    require(strip.shape == (128, 128 * len(objs[::max(1, len(objs) // 8)]), 3), strip.shape)
+    outf = anim
+
+    sigmainv = cli_template_animation.HARD_SIGMAINV
+    dr = DiffRender(os.path.join(outf, objs[0]), 128, init_ellipsoid=-1, sigmainv=sigmainv,
+                    device=DEV)
+    gray = torch.full((1, 256, 128, 3), 0.7, device=DEV)
+    atts = [cli_template_animation.template_attributes(
+        load_obj(os.path.join(outf, f)).vertices, dr.num_vertices, gray, DEV) for f in objs]
+    batch = {k: (None if v is None else torch.cat([a[k] for a in atts]).repeat_interleave(8, 0))
+             for k, v in atts[0].items()}
+    batch["azimuths"] = torch.arange(-180.0, 180.0, 45.0, device=DEV).repeat(len(objs))
+    rstats, kstats = [], []
+    with torch.no_grad():
+        for att in atts + [batch]:
+            ours = dr.render(**att)[0]
+            with plain_render():
+                plain = dr.render(**att)[0]
+            fvc, fvi, fn = dr.project(att)
+            args = (fvi, fvc[..., 2], fn[..., 2], dr.face_uvs, fn)
+            kstats.append(parity.raster_stats(
+                raster_fwd(face_rows(*args).contiguous(), sigmainv, 128, 128),
+                rasterize_fused_plain(*args, sigmainv=sigmainv, height=128, width=128)))
+            rstats.append(parity.render_stats([plain], [ours]))
+    args, _ = raster_case(128, 32, SEED + 400)
+    b32 = parity.raster_stats(raster_fwd(face_rows(*args).contiguous(), sigmainv, 128, 128),
+                              rasterize_fused_plain(*args, sigmainv=sigmainv, height=128,
+                                                    width=128))
+    emit("parity_hard_mode", card=card, sigmainv=sigmainv, renders=len(atts) * 9,
+         render=rstats, raster=kstats, raster_b32=b32)
+    for r, k in zip(rstats, kstats):
+        parity.check_raster(k)
+        parity.check_renders(r)
+    parity.check_raster(b32)
+    return launches
+
+
+def host_tools_phase(card):
+    """The host tools on trees written here (build/tools_smoke/host): the
+    data preparation (``prepare_masks`` with its rename and its hole-filling,
+    ``preprocess_cub``, ``prepare_cub_edges``), ``data/native.py``,
+    ``poisson_edit``, and ``cli.tools`` (``backface``, ``sphere2ellipsoid``,
+    ``demo_mask_composite``, and ``clear_gif`` / ``clear_model`` on a copy
+    of the front end's run, hard links of its files), each output held to a
+    second computation of it in numpy."""
+    from PIL import Image  # writes the trees as the tools read them
+    import PIL
+    import scipy
+    from scipy.signal import convolve2d
+
+    root = os.path.join(ROOT, "build", "tools_smoke", "host")
+    shutil.rmtree(root, ignore_errors=True)
+    rs = np.random.RandomState(SEED + 300)
+    checks = {}
+
+    def mask(h, w, holes=0.0):
+        m = np.zeros((h, w), np.uint8)
+        m[rs.randint(2, h // 4):h - rs.randint(2, h // 4), rs.randint(2, w // 4):w - 3] = 255
+        m[rs.rand(h, w) < holes] = 0
+        return m
+
+    def save(arr, path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(arr).save(path)
+
+    # prepare_masks: CUB's rename; ATR's hole-filling into Seg/
+    masks = {os.path.join(root, "cub", s, "c0", f"m{i}.png"): mask(60, 40)
+             for s in ("train", "test") for i in range(3)}
+    for path, m in masks.items():
+        save(m, path)
+    with contextlib.redirect_stdout(io.StringIO()):  # a line a mask
+        ratios = prepare.prepare_masks(os.path.join(root, "cub"), "*/*/*.png")
+    want = sorted(p[:-4] + "_%.2f.png" % (m > 0).mean() for p, m in masks.items())
+    checks["prepare_masks"] = (files_under(os.path.join(root, "cub")) == want
+                               and len(ratios) == len(masks))
+    atr = {os.path.join(root, "atr", "SegmentationClassAug", f"a{i}.png"): mask(50, 30, 0.1)
+           for i in range(3)}
+    for path, m in atr.items():
+        save(m, path)
+    with contextlib.redirect_stdout(io.StringIO()):
+        prepare.prepare_masks(os.path.join(root, "atr"), "SegmentationClassAug/*.png",
+                              hole_fill=True, out_replace=("SegmentationClassAug", "Seg"))
+    ok = True
+    for path, m in atr.items():
+        filled = (m > 0).astype(np.float64)
+        for _ in range(5):  # the hole-filling's 3 x 3 sums as a convolution
+            filled = (filled + convolve2d(filled, np.ones((3, 3)), mode="same") / 9.0
+                      > 4.0 / 9.0).astype(np.float64)
+        out = path.replace("SegmentationClassAug", "Seg")[:-4] + "_%.2f.png" % filled.mean()
+        ok = ok and os.path.isfile(out) and np.array_equal(
+            read_image(out), (filled * 255).astype(np.uint8))
+    checks["prepare_masks_hole_fill"] = ok
+
+    # preprocess_cub over a CUB_200_2011 layout, then prepare_cub_edges
+    cub = os.path.join(root, "CUB_200_2011")
+    rows, crops = {"images.txt": [], "train_test_split.txt": [], "bounding_boxes.txt": []}, []
+    for i in range(4):
+        rel = f"001.Bird/b{i}.jpg"
+        h, w = 80 + 4 * i, 100 - 6 * i
+        img = to_uint8(smooth_random((1, h, w, 3), SEED + 310 + i)[0])
+        seg = mask(h, w)
+        save(img, os.path.join(cub, "images", rel))
+        save(seg, os.path.join(cub, "segmentations", rel[:-4] + ".png"))
+        x, y, bw, bh = 10.0 + i, 5.0 + 2 * i, w / 2, h / 1.5
+        rows["images.txt"].append(f"{i + 1} {rel}")
+        rows["train_test_split.txt"].append(f"{i + 1} {int(i != 3)}")
+        rows["bounding_boxes.txt"].append(f"{i + 1} {x} {y} {bw} {bh}")
+        x1, y1 = int(min(max(x - bw * 0.1, 0), w)), int(min(max(y - bh * 0.1, 0), h))
+        x2, y2 = int(min(max(x + bw * 1.1, 0), w)), int(min(max(y + bh * 1.1, 0), h))
+        crops.append(("train" if i != 3 else "test", rel, seg[y1:y2, x1:x2]))
+    for name, lines in rows.items():
+        with open(os.path.join(cub, name), "w") as fp:
+            fp.write("\n".join(lines) + "\n")
+    dst = os.path.join(root, "CUB_Data")
+    prepare.preprocess_cub(cub, dst)
+    checks["preprocess_cub"] = all(
+        np.array_equal(read_image(os.path.join(dst, s, rel[:-4] + ".png")), seg)
+        and read_image(os.path.join(dst, s, rel)).shape == seg.shape + (3,)
+        for s, rel, seg in crops)
+    prepare.prepare_cub_edges(dst)
+    ok = True
+    for s, rel, seg in crops[:3]:
+        stem = os.path.join(dst, s, rel[:-4])
+        smooth, edge = read_image(stem + "_smooth.png"), read_image(stem + "_edge.png")
+        ok = ok and np.array_equal(smooth, np.repeat(np.where(seg > 160, 255, 0).astype(
+            np.uint8)[..., None], 3, -1)) and set(np.unique(edge)) <= {0, 255}
+        ok = ok and read_image(stem + "_coarse_edge.png").shape == seg.shape + (3,)
+    checks["prepare_cub_edges"] = ok
+
+    # native: the library's float32 steps against float64 formulas
+    img = rs.randint(0, 256, (37, 23, 3)).astype(np.uint8)
+    y, x = ((np.arange(n) + 0.5) * s / n - 0.5 for n, s in ((61, 37), (45, 23)))
+    y0, x0 = np.floor(y).astype(int), np.floor(x).astype(int)
+    wy, wx = (y - y0)[:, None, None], (x - x0)[None, :, None]
+    yc = [np.clip(y0 + k, 0, 36) for k in (0, 1)]
+    xc = [np.clip(x0 + k, 0, 22) for k in (0, 1)]
+    f = img.astype(np.float64)
+    bil = ((1 - wy) * ((1 - wx) * f[yc[0]][:, xc[0]] + wx * f[yc[0]][:, xc[1]])
+           + wy * ((1 - wx) * f[yc[1]][:, xc[0]] + wx * f[yc[1]][:, xc[1]]))
+    d = np.abs(native.resize_bilinear(img, 61, 45).astype(int) - np.floor(bil + 0.5))
+    rgba = rs.rand(9, 7, 4).astype(np.float32)
+    white = rgba[..., :3].astype(np.float64) * rgba[..., 3:] + (1 - rgba[..., 3:])
+    checks["native"] = (d.max() <= 1 and (d == 0).mean() > 0.99
+                        and np.abs(native.white_composite(rgba)[..., :3] - white).max() <= 1e-6)
+
+    # poisson_edit: the discrete Poisson equation inside the mask, the
+    # target outside it
+    src, tgt = (to_uint8(smooth_random((1, 128, 64, 3), SEED + k)[0]) for k in (320, 321))
+    m = mask(128, 64)
+    t0 = time.perf_counter()
+    out = poisson_edit(src, tgt, m).astype(np.float64)
+    poisson_s = time.perf_counter() - t0
+    omega = m > 0
+    omega[0], omega[-1], omega[:, 0], omega[:, -1] = False, False, False, False
+
+    def lap(a):
+        return 4 * a[1:-1, 1:-1] - a[:-2, 1:-1] - a[2:, 1:-1] - a[1:-1, :-2] - a[1:-1, 2:]
+
+    resid = np.abs(lap(out) - lap(src.astype(np.float64)))[omega[1:-1, 1:-1]]
+    clipped = ((out == 0) | (out == 255))[1:-1, 1:-1][omega[1:-1, 1:-1]]
+    checks["poisson_edit"] = (np.array_equal(out[~omega], tgt[~omega].astype(np.float64))
+                              and np.percentile(resid[~clipped], 99) <= 4.0)
+
+    # cli.tools
+    counts = {}
+    for t in (SPHERE, SMPL):
+        mesh = load_obj(t)
+        v = mesh.vertices.astype(np.float64)[mesh.faces]
+        d0, d1 = v[:, 0] - v[:, 1], v[:, 1] - v[:, 2]
+        area = 0.5 * np.cross(d0, d1).sum(-1)
+        with contextlib.redirect_stdout(io.StringIO()):
+            counts[os.path.basename(t)] = cli_tools.main(["backface", t])
+        sure = np.abs(area) > 1e-6
+        checks["backface_" + os.path.basename(t)] = (
+            sum(counts[os.path.basename(t)]) == len(area)
+            and abs(counts[os.path.basename(t)][0] - int((area > 0).sum())) <= int((~sure).sum()))
+    ell = os.path.join(root, "ellipsoid.obj")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_tools.main(["sphere2ellipsoid", SPHERE, ell])
+    a, b = load_obj(SPHERE).vertices, load_obj(ell).vertices
+    checks["sphere2ellipsoid"] = (np.abs(b[:, 1] - 2 * a[:, 1]).max() <= 1e-5
+                                  and np.abs(b[:, ::2] - a[:, ::2]).max() <= 1e-6)
+    photo, seg = os.path.join(root, "demo.jpg"), os.path.join(root, "demo_seg.png")
+    save(to_uint8(smooth_random((1, 40, 30, 3), SEED + 330)[0]), photo)
+    save((rs.rand(40, 30) * 255).astype(np.uint8), seg)
+    cli_tools.demo_mask_composite(photo, seg, os.path.join(root, "demo_out.png"))
+    rgb = read_image(photo).astype(np.float32) / 255.0
+    keep = (read_image(seg).astype(np.float32) / 255.0 > 0.63)[..., None]
+    checks["demo_mask_composite"] = np.array_equal(
+        read_image(os.path.join(root, "demo_out.png")),
+        ((rgb * keep + (1 - keep)) * 255).astype(np.uint8))
+
+    # clear_gif and clear_model on a copy of the front end's run (hard links)
+    run = os.path.join(root, "log", "smoke")
+    shutil.copytree(os.path.join(ROOT, "build", "frontend_smoke", "log", "smoke"), run,
+                    copy_function=os.link)
+    before = files_under(run)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_tools.main(["clear_gif", "--log_dir", os.path.join(root, "log")])
+        cli_tools.main(["clear_model", "--log_dir", os.path.join(root, "log")])
+    gone = {f for f in before if re.fullmatch(
+        r"epoch_\d+_(rotation.*\.gif|Iter_.*\.png|mesh_recon\.png)", os.path.basename(f))}
+    gone.add(os.path.join(run, "ckpts", "latest_ckpt"))
+    checks["clear_gif_clear_model"] = (files_under(run) == sorted(set(before) - gone)
+                                       and len(gone) >= 4
+                                       and os.path.isfile(os.path.join(run, "ckpts",
+                                                                       "best_ckpt")))
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit("host_tools", card=card, pillow=PIL.__version__, scipy=scipy.__version__,
+         backface=counts, poisson_s=poisson_s, checks=checks)
+    require(all(checks.values()), checks)
+
+
+def tools_phase(card, outf):
+    """generate_market, template_animation and the host tools -> the kernel
+    launches of the CLIs."""
+    t0 = time.perf_counter()
+    total = generate_market_phase(card)
+    for k, v in template_animation_phase(card, outf).items():
+        total[k] = total.get(k, 0) + v
+    host_tools_phase(card)
+    emit("tools", card=card, seconds=time.perf_counter() - t0, launches=total)
+    return total
+
+
 def main(profile_steps=0):
     # 1. toolchain
     card = kernel_times.card()
@@ -1873,6 +2252,10 @@ def main(profile_steps=0):
     # 11. the three published recipes through their CLIs
     torch.cuda.empty_cache()
     recipe_launches = recipes_phase(card)
+    # 12. generate_market on the Market recipe's run, template_animation on
+    # the front end's, and the host tools
+    torch.cuda.empty_cache()
+    tools_launches = tools_phase(card, outf)
 
     # the kernels' summary: name -> (source, the TPU kernel it replaces, the
     # configuration whose main path launches it, where its times were taken)
@@ -1921,6 +2304,7 @@ def main(profile_steps=0):
             "launches_frontend": frontend_launches.get(name, 0),
             "launches_recipes": recipe_launches.get(name, 0),
             "launches_eval_clis": eval_launches.get(name, 0),
+            "launches_tools": tools_launches.get(name, 0),
             "max_abs_err": errs[counted], "ms": t[f"{timed}_ms"],
             "warm_ms": t[f"{timed}_warm_ms"],
             "plain_ms": t[f"{timed}_plain_ms"], "bound_ms": t[f"{timed}_bound_ms"],

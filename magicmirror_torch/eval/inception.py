@@ -4,8 +4,9 @@ tweaks (average pools that do not count the padding, a max pool in the last
 block), in plain torch with the checkpoint's tensor names.
 
 Pretrained weights cannot be fetched offline.  ``load_fid_weights`` reads
-the flat ``.npz`` that ``magicmirror/eval/convert_fid_weights.py`` writes
-(Flax names and layouts) from ``fid_weights.npz`` beside this module, or the
+the flat ``.npz`` that ``python -m magicmirror_torch.eval.convert_fid_weights
+CHECKPOINT.pth`` writes (Flax names and layouts, as the JAX package's
+converter writes it) from ``fid_weights.npz`` beside this module, or the
 path ``MAGICMIRROR_FID_WEIGHTS`` names; without it the network takes
 Flax's default init from a fixed seed, as the JAX package's fallback does,
 and says loudly that FID values are then self-consistent but not comparable
@@ -265,6 +266,7 @@ def load_fid_weights(path: str | None = None, device="cpu") -> InceptionV3FID:
         warnings.warn(
             "FID inception weights not found at %s: using fixed-seed random features. "
             "FID values will be self-consistent but NOT comparable to pytorch-fid numbers. "
-            "Convert the reference weights with magicmirror/eval/convert_fid_weights.py."
+            "Convert the reference weights with "
+            "python -m magicmirror_torch.eval.convert_fid_weights CHECKPOINT.pth."
             % path)
     return model.to(device).eval()

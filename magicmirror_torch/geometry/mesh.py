@@ -1,8 +1,9 @@
-"""Mesh topology precompute (numpy, one-time setup), the port of
-``magicmirror/geometry/mesh.py`` (``face_clocks`` excepted)."""
+"""Mesh topology precompute (numpy, one-time setup) and the faces' signed
+areas (torch), the port of ``magicmirror/geometry/mesh.py``."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def normalize_template(vertices: np.ndarray, init_ellipsoid: float = 1.0) -> np.ndarray:
@@ -75,3 +76,19 @@ def uniform_laplacian(num_vertices: int, faces: np.ndarray) -> np.ndarray:
     L -= np.eye(num_vertices, dtype=np.float32)
     L[deg == 0] = 0.0
     return L
+
+
+def face_clocks(vertices, faces):
+    """Signed (clockwise-ness) areas of the faces, reference
+    smr_utils.py:20-53: vertices (B, V, 3) or (B, V, 2) (then z = 0),
+    faces (F, 3) -> (B, F).  The same products, summed in the same order,
+    as the JAX function."""
+    if vertices.shape[-1] == 2:
+        vertices = torch.cat([vertices, torch.zeros_like(vertices[..., :1])], dim=-1)
+    faces = torch.as_tensor(np.asarray(faces), dtype=torch.long, device=vertices.device)
+    fv = vertices[:, faces.reshape(-1), :].reshape(vertices.shape[0], -1, 3, 3)
+    d0 = fv[:, :, 0] - fv[:, :, 1]
+    d1 = fv[:, :, 1] - fv[:, :, 2]
+    x1, x2, x3 = d0.unbind(-1)
+    y1, y2, y3 = d1.unbind(-1)
+    return 0.5 * ((x2 * y3 - x3 * y2) + (x3 * y1 - x1 * y3) + (x1 * y2 - x2 * y1))

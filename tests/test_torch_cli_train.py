@@ -22,7 +22,7 @@ from magicmirror_torch import kernels
 from magicmirror_torch.cli import train as cli
 from magicmirror_torch.configs import flags
 from test_torch_data import cub_tree
-from torch_parity import SPHERE
+from torch_parity import SPHERE, drop_checkpoints
 
 torch.set_num_threads(1)
 
@@ -57,3 +57,4 @@ def test_cli_trains_one_epoch_from_a_cub_tree(tmp_path, monkeypatch):
     assert len(lines) == 10 and sum("(SWA)" in ln for ln in lines) == 5
     # the eval images carry the photos' names: s0.jpg, s1.jpg of the test split
     assert sorted(os.listdir(os.path.join(outf, "fid", "rec"))) == ["s0.jpg", "s1.jpg"]
+    drop_checkpoints(tmp_path)

@@ -39,7 +39,7 @@ from magicmirror_torch.data import atr
 from magicmirror_torch.serve import PRESETS
 from magicmirror_torch.train import TrainOptions, preset_options, train_options
 from test_torch_recipe_data import atr_tree, market_tree
-from torch_parity import REPO
+from torch_parity import REPO, drop_checkpoints
 
 DRYRUN = os.path.join(REPO, "template", "sphere_dryrun.obj")
 
@@ -139,6 +139,7 @@ def _market_cli_trains_one_epoch(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="hmr"):
         train_market.main(argv + ["--name", "w", "--hmr", "1"], device="cpu")
     assert not os.path.exists(os.path.join("log", "w"))
+    drop_checkpoints(tmp_path)
 
 
 def _atr2_cli_trains_one_epoch(tmp_path, monkeypatch):
@@ -152,3 +153,4 @@ def _atr2_cli_trains_one_epoch(tmp_path, monkeypatch):
     assert (state.step, state.epoch, state.swa_n) == (2, 0, 1)
     assert sorted(os.listdir(os.path.join(outf, "fid", "rec"))) == [
         "a100.jpg", "a101.jpg", "a102.jpg"]
+    drop_checkpoints(tmp_path)

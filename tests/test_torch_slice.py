@@ -141,7 +141,7 @@ def test_options_outside_the_port_raise(change):
 
 def test_port_imports_without_jax_flax_yaml_or_pil():
     """Every module of the port imports with JAX, Flax, optax, orbax, yaml,
-    Pillow, imageio, matplotlib, TensorBoard and the JAX package blocked
+    Pillow, imageio, tqdm, matplotlib, TensorBoard and the JAX package blocked
     (the card's machine has none of them but Pillow and yaml, which the port
     reaches only inside the functions that decode a JPEG, blur a mask or
     read and write opts.yaml; matplotlib only where it draws a histogram)."""
@@ -149,7 +149,7 @@ def test_port_imports_without_jax_flax_yaml_or_pil():
                                                    "magicmirror_torch.")]
     code = ("import sys\n"
             "for blocked in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'yaml', 'PIL',\n"
-            "                'imageio', 'matplotlib', 'tensorboard', 'magicmirror'):\n"
+            "                'imageio', 'tqdm', 'matplotlib', 'tensorboard', 'magicmirror'):\n"
             "    sys.modules[blocked] = None\n"
             "import importlib\n"
             f"for name in {names!r}:\n"
@@ -168,7 +168,10 @@ def test_port_imports_without_jax_flax_yaml_or_pil():
                    "configs", "configs.flags", "configs.recipes", "cli", "cli.train",
                    "cli.train_market", "cli.train_atr", "cli.train_atr2", "train.convert_jax",
                    "data.thuman2", "eval.pck", "cli.test", "cli.single_img", "cli.show_camera",
-                   "cli.show_rainbow2", "cli.test_cub30", "cli.test_thu", "cli.test_pck"):
+                   "cli.show_rainbow2", "cli.test_cub30", "cli.test_thu", "cli.test_pck",
+                   "cli.generate_market", "cli.template_animation", "cli.tools",
+                   "cli.ablation_hmr", "eval.poisson", "eval.convert_fid_weights",
+                   "data.prepare", "data.native", "models.convert_torch"):
         assert f"magicmirror_torch.{module}" in names, module
     for name in names:  # and they import here too
         importlib.import_module(name)

@@ -27,7 +27,7 @@ from magicmirror_torch.render.synthetic import smooth_random
 from magicmirror_torch.train import METRIC_KEYS, TrainOptions, build_trainer, sample_draws
 from magicmirror_torch.train.checkpoints import CheckpointManager
 from magicmirror_torch.train.state import swa_update
-from torch_parity import SPHERE, t
+from torch_parity import SPHERE, drop_checkpoints, t
 
 torch.set_num_threads(1)
 S, B = 32, 2
@@ -109,6 +109,7 @@ def test_trainer_two_epochs_writes_the_reference_artifacts(tmp_path, monkeypatch
     assert [t["epoch"] for t in timings] == [0, 1]
     assert [c["name"] for c in timings[0]["checkpoints"]] == ["latest_ckpt", "best_ckpt"]
     assert "em_update_bn_s" in timings[0] and "em_s" not in timings[1]
+    drop_checkpoints(tmp_path)
 
 
 def test_checkpoint_round_trip_resumes_the_run(tmp_path):
@@ -145,3 +146,4 @@ def test_checkpoint_round_trip_resumes_the_run(tmp_path):
     for opt_name in ("opt_e", "opt_d"):
         sa, sb = (getattr(s, opt_name).state_dict()["state"] for s in (a, b))
         assert all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i])
+    drop_checkpoints(tmp_path)

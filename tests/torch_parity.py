@@ -8,7 +8,9 @@ statistics be random instead of (0, 1).
 """
 from __future__ import annotations
 
+import glob
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -16,6 +18,14 @@ import torch
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 SPHERE = os.path.join(REPO, "template", "sphere.obj")
+
+
+def drop_checkpoints(root) -> None:
+    """Remove the ``ckpts`` folders under ``root`` once a test has read
+    them: a checkpoint of the full-width encoders is some hundreds of MB,
+    and pytest keeps the temporary folders of its last three runs."""
+    for path in glob.glob(os.path.join(str(root), "**", "ckpts"), recursive=True):
+        shutil.rmtree(path)
 
 
 def flax_shapes(module, *args, **kwargs):
