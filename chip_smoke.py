@@ -95,9 +95,28 @@ renders 128x64) and "cub_exact" (the defaults with soft_mode exact).
      at 1e6 at b32, held to the plain versions; the data preparation,
      data/native.py, the Poisson blend and cli.tools on trees written into
      build/tools_smoke, each output held to a second computation in numpy.
+ 13. the off-default options, three sets at full width: the defaults with
+     --norm ibn --makeup 2 --nolpl --inv 0.5 --gan_type lsgan --dis1 0.1
+     --dis2 0.1 --lambda_lc 0.1; the defaults with --norm ln --makeup 5
+     --sn_dis 1 --adamw (amsgrad off) --wd 1e-4; the Market recipe with
+     --norm in --makeup 1 --hmr 1 (body meshes: smpl_uv.obj's vertices under
+     a seeded jitter): a serving step (K1 and K3 five times), 8 train steps
+     with dropout on (finite, nothing skipped or dropped, the default step's
+     launches), one step at b4 card vs CPU, and the serving, train-step and
+     D-update times.
 Phase 3 also holds K1-K4 at the recipes' shapes at b48 (128^2, 128x64,
 160x96) against their plain versions, and phase 5 one step of the Market
 recipe at b4, 128x64, on the card against the CPU.
+
+Order: 1-3, then the timing alone on the card (6, 7, the recipes' and the
+option sets' times, each on a fresh model); then the rest side by side,
+each lane a process of its own (``--lane``, internal): the slices (4-5;
+the dense template's and the 'exact' mode's in a lane of their own), the
+front end with the trainer and the eval CLIs (8-10), the recipes' runs
+(11), after the dense slices the three option sets' checks (13), and after
+the front end and the recipes the tools (12).  Lines of a lane carry its name; ``phase_seconds`` lines give
+each phase's seconds and the FID distances' share of them (scipy's sqrtm
+on the host).
 The line before the last is the kernels' JSON summary (``ms`` and
 ``library_ms`` are cold device times, ``warm_ms`` warm ones, ``plain_ms``
 CUDA events around the plain version); the last line is
@@ -108,6 +127,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -117,6 +137,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -143,9 +164,11 @@ from magicmirror_torch.configs import flags  # noqa: E402
 from magicmirror_torch.configs.recipes import CLI_DEFAULTS, RECIPES, recipe_flags  # noqa: E402
 from magicmirror_torch.data import atr as atr_data  # noqa: E402
 from magicmirror_torch.data import native, prepare  # noqa: E402
+from magicmirror_torch.eval import fid as fid_module  # noqa: E402
 from magicmirror_torch.eval.images import (decode_png, encode_png, read_image,  # noqa: E402
                                            save_array_image, to_uint8)
 from magicmirror_torch.eval.poisson import poisson_edit  # noqa: E402
+from magicmirror_torch.geometry import mesh as mesh_ops  # noqa: E402
 from magicmirror_torch.geometry.obj_io import load_obj  # noqa: E402
 from magicmirror_torch.kernels import build  # noqa: E402
 from magicmirror_torch.losses import recon  # noqa: E402
@@ -202,7 +225,9 @@ CONFIGS = {
 # its silhouette backward is autograd of the plain phase 1; market_smpl's loss
 # falls slowly, ROADMAP §3.2: 12 steps fell 1.1%, too close to the check)
 TRAIN_STEPS = {"default": 12, "market_smpl": 24, "cub_exact": 8}
-T0 = time.perf_counter()
+# the script's start: a lane process counts its lines' ``t`` from its parent's
+START = float(os.environ.get("CHIP_SMOKE_START", time.time()))
+T0 = time.perf_counter() - (time.time() - START)
 
 
 def options(cls, config, **overrides):
@@ -228,6 +253,40 @@ def emit(phase, **fields):
     """One result line; ``t`` is the seconds since the script started."""
     print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0, 1), **fields}),
           flush=True)
+
+
+# host seconds spent in the Frechet distances (scipy's sqrtm, in processes of
+# their own) of every FID: the share of each phase that phase_time reports
+FID_SECONDS = [0.0]
+_frechet_distances = fid_module.frechet_distances
+
+
+def _timed_frechet_distances(ref_stats, stats):
+    t0 = time.perf_counter()
+    try:
+        return _frechet_distances(ref_stats, stats)
+    finally:
+        FID_SECONDS[0] += time.perf_counter() - t0
+
+
+fid_module.frechet_distances = _timed_frechet_distances
+
+
+class Laps:
+    """``lap(name)`` emits the seconds since the previous lap (or since
+    ``start``, a ``time.perf_counter()``; by default now) as the phase
+    ``name``'s, with the FID distances' seconds in them and their share."""
+
+    def __init__(self, start=None):
+        self.t = time.perf_counter() if start is None else start
+        self.fid = FID_SECONDS[0]
+
+    def __call__(self, name):
+        t, fid = time.perf_counter(), FID_SECONDS[0]
+        seconds, fid_s = t - self.t, fid - self.fid
+        self.t, self.fid = t, fid
+        emit("phase_seconds", name=name, seconds=seconds, fid_s=fid_s,
+             fid_share=fid_s / seconds if seconds else 0.0)
 
 
 def cuda_ms(fn, warmup=3, iters=20):
@@ -808,18 +867,24 @@ def serving_slice(config):
     return launches, rec, dr, dr_cpu, photos
 
 
-def train_step_gpu_vs_cpu(dr, dr_cpu, photos, topt=None, config="default"):
+def train_step_gpu_vs_cpu(dr, dr_cpu, photos, topt=None, config="default", Va=None,
+                          adjust=None):
     """Phase 5 (a): one step at b4 on the card against the same step on the
     CPU: the same weights (drawn on the CPU from the seed), BatchNorm
     statistics, photos and draws; dropout off.  ``topt``: the options of
-    ``config`` (the defaults when None)."""
+    ``config`` (the defaults when None); ``Va``: with ``hmr`` the photos'
+    body meshes; ``adjust``: a change made to both train states' weights
+    before the step."""
     lpl = dr.vertices_laplacian_matrix
     topt = topt or TrainOptions(template_path=SPHERE, droprate="0,0,0")
     on_card, on_cpu = build_trainer(topt), build_trainer(topt, device="cpu")
+    if adjust is not None:
+        adjust(on_card.state)
+        adjust(on_cpu.state)
     estimate_bn_stats(on_card.state.netE, [photos], dr.vertices_init, lpl)
     on_cpu.state.netE.load_state_dict(on_card.state.netE.state_dict())
     draws = sample_draws(topt, photos.shape[0], torch.Generator(device=DEV).manual_seed(SEED + 3),
-                         DEV)
+                         DEV, dr.num_faces)
     draws_cpu = {k: v.cpu() for k, v in draws.items()}
     # the two views the step will render, from copies of the state: where their
     # alpha differs between the devices, and why
@@ -833,10 +898,11 @@ def train_step_gpu_vs_cpu(dr, dr_cpu, photos, topt=None, config="default"):
          views=[{"view": name, **view_witness(dr, dr_cpu, views[0][key], views[1][key])}
                 for name, key in (("Xer", "Ae"), ("Xir", "Ai"))])
     kernels.reset_launches()
-    m_card, Xer, Xir = on_card.step(photos, 1e-4, 1e-4, 1.0, 0, draws=draws)
+    m_card, Xer, Xir = on_card.step(photos, 1e-4, 1e-4, 1.0, 0, draws=draws, Va=Va)
     torch.cuda.synchronize()
     one_step = dict(kernels.LAUNCHES)
-    m_cpu, Xer_cpu, Xir_cpu = on_cpu.step(photos.cpu(), 1e-4, 1e-4, 1.0, 0, draws=draws_cpu)
+    m_cpu, Xer_cpu, Xir_cpu = on_cpu.step(photos.cpu(), 1e-4, 1e-4, 1.0, 0, draws=draws_cpu,
+                                          Va=None if Va is None else Va.cpu())
     m_card, m_cpu = metric_floats(m_card), metric_floats(m_cpu)
     # each loss term relative to itself, but to no less than a thousandth of
     # its side's total: with the critic's head at its N(0, 1e-5) init the
@@ -957,17 +1023,17 @@ def device_entries(rec):
             f"{name}_library_ms": rec.get("library_cold_ms")}
 
 
-def training_timing(trainer, dr, batch, reps=10):
+def training_timing(trainer, dr, batch, reps=10, Va=None):
     """The train step at b32 and its parts: the step as a user calls it
     (median of ``reps``); then its three phases between CUDA events; the
     encoder's train-mode forward, one render forward + backward and the two
-    optimizer steps alone."""
+    optimizer steps alone.  ``Va``: with ``hmr``, the photos' body meshes."""
     state, opt = trainer.state, trainer.opt
-    step_ms = cuda_ms(lambda: trainer.step(batch, 3e-4, 3e-4), 2, reps)
+    step_ms = cuda_ms(lambda: trainer.step(batch, 3e-4, 3e-4, Va=Va), 2, reps)
     parts = {"forward_ms": [], "d_update_ms": [], "g_update_ms": []}
     with _no_tf32():
         for _ in range(max(2, reps // 2)):
-            draws = sample_draws(opt, batch.shape[0], trainer.generator, DEV)
+            draws = sample_draws(opt, batch.shape[0], trainer.generator, DEV, dr.num_faces)
             before = [b.clone() for b in running_statistics(state.netE)]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
             ev[0].record()
@@ -975,7 +1041,7 @@ def training_timing(trainer, dr, batch, reps=10):
             ev[1].record()
             update_d(state, outs, opt, draws, 3e-4, 1.0)
             ev[2].record()
-            update_e(state, dr, opt, outs, batch, 3e-4, 1.0, before)
+            update_e(state, dr, opt, outs, batch, 3e-4, 1.0, before, Va)
             ev[3].record()
             torch.cuda.synchronize()
             for key, a, b in zip(parts, ev, ev[1:]):
@@ -1626,22 +1692,16 @@ def recipe_phase(name, card):
     which this points at them for the run.  Checks the loss lines,
     opts.yaml, the steps, the artifacts and fid/ files, the kernel launches
     of the run (three renders a step with the hard view), and the background
-    of the trained encoder; then times serving and the train step at b48
-    with a fresh model of the recipe -> the run's kernel launches."""
+    of the trained encoder -> the run's kernel launches.  (``recipe_timing``
+    times the recipe.)"""
     cli_mod, layout, n_train, n_test, distances = RECIPE_RUNS[name]
-    recipe = recipe_flags(name)
     work = os.path.join(ROOT, "build", "recipes_smoke", name)
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     os.symlink(os.path.join(ROOT, "template"), os.path.join(work, "template"))
-    W = recipe["imageSize"]
-    dr = DiffRender(SPHERE, W, ratio=recipe["ratio"], init_ellipsoid=recipe["ellipsoid"],
-                    device=DEV)
-    H = dr.render_height
-    # inside the train and the clean thresholds: both train loaders take every photo
-    (a, b), (c, d) = ((float(v) for v in recipe[k].split(","))
-                      for k in ("threshold", "clean_threshold"))
-    fg_range = (max(a, c), min(b, d))
+    dr, fg_range = recipe_renderer(name)
+    H, W = dr.render_height, dr.render_width
+    recipe = recipe_flags(name)
     t0 = time.perf_counter()
     train = recipe_photo_files(dr, n_train, SEED + 100, recipe["elev_range"], distances,
                                fg_range)
@@ -1713,9 +1773,30 @@ def recipe_phase(name, card):
             bg.shape)
     del state, bg
     torch.cuda.empty_cache()
+    return launches
 
-    # serving and the train step of the recipe at b48, a fresh model
+
+def recipe_renderer(name):
+    """The recipe's renderer on sphere.obj, and the foreground ratios inside
+    both its train thresholds (both train loaders take every photo)."""
+    recipe = recipe_flags(name)
+    dr = DiffRender(SPHERE, recipe["imageSize"], ratio=recipe["ratio"],
+                    init_ellipsoid=recipe["ellipsoid"], device=DEV)
+    (a, b), (c, d) = ((float(v) for v in recipe[k].split(","))
+                      for k in ("threshold", "clean_threshold"))
+    return dr, (max(a, c), min(b, d))
+
+
+def recipe_timing(name, card):
+    """Serving and the train step of the recipe at b48 with a fresh model,
+    on the first batch of its run's train photos."""
+    _, _, _, _, distances = RECIPE_RUNS[name]
+    dr, fg_range = recipe_renderer(name)
     topt = preset_options(TrainOptions, name, template_path=SPHERE)
+    first = recipe_photo_files(dr, topt.batchSize, SEED + 100, topt.elev_range, distances,
+                               fg_range)
+    photos = torch.as_tensor(np.stack([np.concatenate([rgb, mask[..., None]], -1)
+                                       for rgb, mask, _ in first]), device=DEV).float() / 255.0
     trainer = build_trainer(topt)
     tdr = trainer.diff_render
     estimate_bn_stats(trainer.state.netE, [photos], tdr.vertices_init,
@@ -1739,12 +1820,11 @@ def recipe_phase(name, card):
     require(one_step == step_launches(topt, 0), (one_step, step_launches(topt, 0)))
     del trainer, rec, att
     torch.cuda.empty_cache()
-    return launches
 
 
 def recipes_phase(card):
-    """The three published recipes (recipe_phase) -> the kernel launches of
-    their runs, summed."""
+    """The three published recipes' runs (recipe_phase) -> the kernel
+    launches of their runs, summed."""
     t0 = time.perf_counter()
     total = {}
     for name in RECIPES:
@@ -1764,6 +1844,156 @@ def recipe_step_gpu_vs_cpu():
     dr_cpu = DiffRender(SPHERE, topt.imageSize, device="cpu", **kw)
     photos = recipe_photos(dr, 4, SEED + 5, topt.elev_range, RECIPE_RUNS["recipe_market"][4])
     train_step_gpu_vs_cpu(dr, dr_cpu, photos, topt, "recipe_market")
+
+
+# the options phase: name -> (the preset the options change, None for the
+# flags' defaults (sphere.obj, 128^2, hr18sv2 / res34, b32); the options)
+OPTION_SETS = {
+    "options_encoder_critic": (None, dict(norm="ibn", makeup=2, nolpl=True, inv=0.5,
+                                          gan_type="lsgan", dis1=0.1, dis2=0.1,
+                                          lambda_lc=0.1)),
+    "options_ln_sn_adamw": (None, dict(norm="ln", makeup=5, sn_dis=1, adamw=True,
+                                       amsgrad=False, wd=1e-4)),
+    "options_market_hmr": ("recipe_market", dict(norm="in", makeup=1, hmr=1.0)),
+}
+OPTION_STEPS = 8
+# the sets photographed over a smooth random background (the recipes'
+# photos), with their camera distances; the others white-composited.  The
+# makeup refinement (1-4) needs it: on white, the texture map the flow
+# samples is nearly flat, and float32 noise fills it (the port on the CPU
+# against itself in float64 at b4/128^2: 21.5% of the refined texels 1e-3
+# apart on white photos, 6.0% over a background; 2.5% and 0.13% unrefined)
+OPTION_BACKGROUNDS = {"options_encoder_critic": (2.9, 3.9),
+                      "options_market_hmr": RECIPE_RUNS["recipe_market"][4]}
+# The card-vs-CPU step of a set with the makeup refinement (1-4) scales the
+# refinement's last conv by this on both devices.  At its init scale three
+# texels in four sit past the refinement's clip, and its InstanceNorm
+# spreads each texel's float32 noise over its neighbours: card vs CPU
+# missed the rule on white photos (24% of Xir's pixels past 1e-3), and at
+# this scale over a background it holds with a wide margin (99.98% within,
+# the worst 2.1e-3).  The whole-step parity tests scale it alike
+# (tests/torch_option_step.py).
+REFINEMENT_SCALE = 0.02
+
+
+def quiet_refinement(state):
+    """Scale the makeup refinement's last conv by REFINEMENT_SCALE."""
+    enc = state.netE.texture_enc
+    if enc.refine:
+        conv = getattr(enc, enc.refine[-1]).Conv_0
+        with torch.no_grad():
+            conv.weight.mul_(REFINEMENT_SCALE)
+            conv.bias.mul_(REFINEMENT_SCALE)
+
+
+def option_options(name, **overrides):
+    """``TrainOptions`` of the option set ``name`` (on sphere.obj)."""
+    preset, changes = OPTION_SETS[name]
+    if preset is None:
+        return TrainOptions(template_path=SPHERE, **changes, **overrides)
+    return preset_options(TrainOptions, preset, template_path=SPHERE, **changes, **overrides)
+
+
+def option_photos(name, dr, batch, seed):
+    """The set's photos: the recipes' (over a smooth background) for the sets
+    of OPTION_BACKGROUNDS, else the other phases' synthetic photos."""
+    opt = option_options(name)
+    if name in OPTION_BACKGROUNDS:
+        return recipe_photos(dr, batch, seed, opt.elev_range, OPTION_BACKGROUNDS[name])
+    return synthetic_photos(dr, batch, seed, opt.elev_range)
+
+
+def body_meshes(batch, seed):
+    """(batch, 6890, 3) body meshes on the card for ``--hmr``: smpl_uv.obj's
+    vertices, normalised as a template is, each under a seeded jitter (a
+    scale an axis and noise)."""
+    v = mesh_ops.normalize_template(load_obj(SMPL).vertices)
+    rs = np.random.RandomState(seed)
+    meshes = v[None] * rs.uniform(0.9, 1.1, (batch, 1, 3)) + 0.01 * rs.randn(batch, *v.shape)
+    return torch.as_tensor(meshes.astype(np.float32), device=DEV)
+
+
+def options_timing(name, card):
+    """The option set's serving step and train step (with the D update's ms
+    on its own) at its batch, a fresh model at full width."""
+    opt = option_options(name)
+    trainer = build_trainer(opt)
+    dr, B = trainer.diff_render, opt.batchSize
+    photos = option_photos(name, dr, B, SEED + 300)
+    Va = body_meshes(B, SEED + 301) if opt.hmr > 0 else None
+    estimate_bn_stats(trainer.state.netE, [photos], dr.vertices_init,
+                      dr.vertices_laplacian_matrix)
+    rec = Reconstructor(trainer.state.netE, dr, opt)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    att = rec.encode(photos)
+    serving = {"encode_ms": cuda_ms(lambda: rec.encode(photos), iters=10),
+               "render_ms": cuda_ms(lambda: dr.render(**att), iters=10),
+               "step_ms": cuda_ms(lambda: rec(photos, generator=gen), iters=10)}
+    serving["images_per_s"] = B * 1000.0 / serving["step_ms"]
+    torch.cuda.reset_peak_memory_stats()
+    training = training_timing(trainer, dr, photos, reps=4, Va=Va)
+    emit("timing_options", config=name, card=card, shape=shape_of(dr, B),
+         options=OPTION_SETS[name][1], critic=type(trainer.state.netD).__name__,
+         serving=serving, training=training,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del trainer, rec, att
+    torch.cuda.empty_cache()
+
+
+def options_checks(name, card):
+    """The option set at full width on the card: a serving step through
+    Reconstructor (K1 and K3 five times), OPTION_STEPS train steps with
+    dropout on (finite metrics, no skipped side, nothing dropped, the
+    launches of the default step at the same train_shape: the options add
+    encoder passes, a critic and losses, no render), and one step at b4 on
+    the card against the same step on the CPU (train_step_gpu_vs_cpu) ->
+    the kernel launches of the serving and the train steps."""
+    t0 = time.perf_counter()
+    opt = option_options(name)
+    trainer = build_trainer(opt)
+    dr, B = trainer.diff_render, opt.batchSize
+    lpl = dr.vertices_laplacian_matrix
+    batches = [option_photos(name, dr, B, SEED + 310 + i) for i in range(4)]
+    meshes = [body_meshes(B, SEED + 320 + i) if opt.hmr > 0 else None for i in range(4)]
+    estimate_bn_stats(trainer.state.netE, batches[:1], dr.vertices_init, lpl)
+    rec = Reconstructor(trainer.state.netE, dr, opt)
+    kernels.reset_launches()
+    outs = rec(batches[0], generator=torch.Generator(device=DEV).manual_seed(SEED))
+    torch.cuda.synchronize()
+    serving = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    require(all(bool(torch.isfinite(r).all()) for r in outs[:5]), "non-finite render")
+    require(serving == {"raster_fwd": 5, "texture_fwd": 5}, serving)
+
+    kernels.reset_launches()
+    history = [metric_floats(trainer.step(batches[i % 4], 3e-4, 3e-4,
+                                          warm_up=min(1.0, 0.01 + i / 20.0),
+                                          Va=meshes[i % 4])[0])
+               for i in range(OPTION_STEPS)]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    expect = {k: v * OPTION_STEPS for k, v in step_launches(opt, 0).items()}
+    emit("options_train_steps", config=name, card=card, shape=shape_of(dr, B),
+         options=OPTION_SETS[name][1], critic=type(trainer.state.netD).__name__,
+         steps=OPTION_STEPS, launches=launches, expected_launches=expect,
+         serving_launches=serving, first=history[0], last=history[-1],
+         lossR_data=[m["lossR_data"] for m in history])
+    for i, m in enumerate(history):
+        require(all(math.isfinite(v) for v in m.values()), (i, m))
+        require(m["skipE"] == m["skipD"] == 0.0, (i, m))
+        require(m["dropped_faces"] == m["dropped_tex_chunks"] == 0.0, (i, m))
+    require(launches == expect, (launches, expect))
+    del trainer, rec, outs, batches
+    torch.cuda.empty_cache()
+
+    topt = option_options(name, droprate="0,0,0", batchSize=4)
+    kw = dict(ratio=topt.ratio, init_ellipsoid=topt.ellipsoid)
+    dr4 = DiffRender(SPHERE, topt.imageSize, device=DEV, **kw)
+    dr_cpu = DiffRender(SPHERE, topt.imageSize, device="cpu", **kw)
+    train_step_gpu_vs_cpu(dr4, dr_cpu, option_photos(name, dr4, 4, SEED + 5), topt, name,
+                          Va=body_meshes(4, SEED + 6) if topt.hmr > 0 else None,
+                          adjust=quiet_refinement)
+    emit("options", config=name, card=card, seconds=time.perf_counter() - t0)
+    return {k: serving.get(k, 0) + launches.get(k, 0) for k in {*serving, *launches}}
 
 
 # the modes of generate_market: flags, and renders a batch (K1 and K3 each)
@@ -2129,7 +2359,142 @@ def tools_phase(card, outf):
     return total
 
 
+def timing_models(config):
+    """For the timing: a b32 trainer of the configuration (weights from the
+    seed, BatchNorm statistics re-estimated on a batch as the train steps'
+    are) and a Reconstructor on its encoder -> (Reconstructor, renderer, b4
+    photos (the serving slice's), trainer)."""
+    trainer = build_trainer(options(TrainOptions, config))
+    dr, opt = trainer.diff_render, trainer.opt
+    estimate_bn_stats(trainer.state.netE, [synthetic_photos(dr, 32, SEED + 10, opt.elev_range)],
+                      dr.vertices_init, dr.vertices_laplacian_matrix)
+    photos = synthetic_photos(dr, 4, SEED + 1, opt.elev_range)
+    return Reconstructor(trainer.state.netE, dr, opt), dr, photos, trainer
+
+
+# The phases after the timing run side by side, each lane a process of its
+# own (``python3 chip_smoke.py --lane NAME``): the lane -> the lanes it waits
+# for.  The card's 80 GB set the grouping: the dense template's slice takes
+# 32 GB at b32 and the 'exact' one 23 GB, so they share a lane, and the
+# option sets (18, 8 and 10 GB) wait for it and the default's slice; the
+# tools read the front end's and the Market recipe's runs.
+LANES = {"slices_dense": (), "slices": (), "frontend": (), "recipes": (),
+         **{name: ("slices_dense", "slices") for name in OPTION_SETS},
+         "tools": ("frontend", "recipes")}
+FRONTEND_OUTF = os.path.join(ROOT, "build", "frontend_smoke", "log", "smoke")
+
+
+def slices(configs):
+    """4. the serving slice and 5. the training slice of ``configs`` ->
+    (serving launches, train-step launches) by configuration."""
+    serve, train = {}, {}
+    for config in configs:
+        serve[config], _, dr, dr_cpu, photos = serving_slice(config)
+        if config == "default":
+            train_step_gpu_vs_cpu(dr, dr_cpu, photos)
+        train[config], _ = train_steps(config, dr)
+        del dr_cpu
+        torch.cuda.empty_cache()
+    return serve, train
+
+
+# the lanes whose host work is torch on the CPU (the CPU halves of the
+# card-vs-CPU checks): they yield the host to the lanes that wait on FID's
+# sqrtm processes, the longest
+BACKGROUND_LANES = ("slices", "slices_dense", *OPTION_SETS)
+
+
+def run_lane(name, card):
+    """The phases of the lane ``name``, in this process -> its results."""
+    if name in BACKGROUND_LANES:
+        os.nice(10)
+    lap = Laps()
+    if name in ("slices", "slices_dense"):
+        serve, train = slices(("default",) if name == "slices" else
+                              ("market_smpl", "cub_exact"))
+        if name == "slices":
+            # a step of the Market recipe (--bg --hard) on the card against the CPU
+            recipe_step_gpu_vs_cpu()
+        lap(name)
+        return {"serve_launches": serve, "train_launches": train}
+    if name == "frontend":
+        # 8. the file front end of python train.py: a CUB-layout tree through
+        # cli.train.main; 9. the trainer around the step: epochs, SWA, EM,
+        # eval, FID, checkpoints; 10. the evaluation and serving CLIs on that run
+        frontend_launches, argv, outf = frontend_phase(card)
+        lap("frontend")
+        torch.cuda.empty_cache()
+        trainer_phase(card, argv, outf)
+        lap("trainer")
+        torch.cuda.empty_cache()
+        eval_launches = eval_clis_phase(card, outf)
+        lap("eval_clis")
+        require(outf == FRONTEND_OUTF, (outf, FRONTEND_OUTF))
+        return {"frontend": frontend_launches, "eval_clis": eval_launches}
+    if name == "recipes":  # 11. the three published recipes through their CLIs
+        launches = recipes_phase(card)
+        lap("recipes")
+        return {"recipes": launches}
+    if name == "tools":
+        # 12. generate_market on the Market recipe's run, template_animation
+        # on the front end's, and the host tools
+        launches = tools_phase(card, FRONTEND_OUTF)
+        lap("tools")
+        return {"tools": launches}
+    launches = options_checks(name, card)  # the option sets
+    lap(name)
+    return {"options": launches}
+
+
+def run_lanes():
+    """Run every lane of LANES, each once the lanes it waits for have ended,
+    their lines relayed as they come with the lane's name in them -> {lane:
+    its results}.  A lane that fails fails the script; every lane process is
+    ended before this returns."""
+    # OpenMP threads that wait sleep: the lanes' threads outnumber the CPUs;
+    # and the lanes' allocators map memory as they grow, holding no reserve
+    env = {**os.environ, "CHIP_SMOKE_START": repr(START), "OMP_WAIT_POLICY": "PASSIVE",
+           "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    procs, results, relays, lock = {}, {}, [], threading.Lock()
+
+    def relay(name, proc):
+        for line in proc.stdout:
+            if line.startswith('{"lane_result"'):
+                results[name] = json.loads(line)["lane_result"]
+                continue
+            if line.startswith('{"phase"'):
+                line = json.dumps({**json.loads(line), "lane": name}) + "\n"
+            with lock:
+                sys.stdout.write(line)
+                sys.stdout.flush()
+
+    pending = dict(LANES)
+    try:
+        while pending or any(p.poll() is None for p in procs.values()):
+            for name, waits in list(pending.items()):
+                if all(w in procs and procs[w].poll() == 0 for w in waits):
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__), "--lane", name],
+                        stdout=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+                    relays.append(threading.Thread(target=relay, args=(name, procs[name])))
+                    relays[-1].start()
+                    del pending[name]
+            failed = {n: p.returncode for n, p in procs.items() if p.poll() not in (None, 0)}
+            require(not failed, ("lanes failed", failed))
+            time.sleep(0.5)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        for thread in relays:
+            thread.join()
+    require(set(results) == set(LANES), ("lanes without results", set(LANES) - set(results)))
+    return results
+
+
 def main(profile_steps=0):
+    lap = Laps(T0)
     # 1. toolchain
     card = kernel_times.card()
     nvcc = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True,
@@ -2144,6 +2509,7 @@ def main(profile_steps=0):
     ptxas = [ln.strip() for ln in build.BUILD_INFO["log"].splitlines() if "Used" in ln]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          nvcc_seconds=round(build.BUILD_INFO["seconds"], 3), ptxas=ptxas)
+    lap("toolchain_build")
 
     # 3. kernel parity, kernel vs plain on the same inputs
     errs = dict.fromkeys(kernels.LAUNCHES, 0.0)
@@ -2184,20 +2550,14 @@ def main(profile_steps=0):
         for k, v in launches.items():
             probe_launches[k] = probe_launches.get(k, 0) + v
     torch.cuda.synchronize()
+    lap("kernel_parity")
 
-    # 4. the serving slice and 5. the training slice of each configuration
-    serve_launches, train_launches, recs, trainers = {}, {}, {}, {}
-    for config in CONFIGS:
-        serve_launches[config], rec, dr, dr_cpu, photos = serving_slice(config)
-        if config == "default":
-            train_step_gpu_vs_cpu(dr, dr_cpu, photos)
-        train_launches[config], trainers[config] = train_steps(config, dr)
-        recs[config] = (rec, dr, photos)
-        del dr_cpu
-    # a step of the Market recipe (--bg --hard) on the card against the CPU
-    recipe_step_gpu_vs_cpu()
-
-    # 6. timing (CUDA events, median after warm-up)
+    # 6. timing (CUDA events, median after warm-up), alone on the card: the
+    # kernels, the configurations' serving and train steps (fresh models at
+    # full width), the recipes' and the option sets'
+    models = {config: timing_models(config) for config in CONFIGS}
+    recs = {config: m[:3] for config, m in models.items()}
+    trainers = {config: m[3] for config, m in models.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -2210,6 +2570,7 @@ def main(profile_steps=0):
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     for config, (rec, dr, photos) in recs.items():
         batch = photos.repeat(8, 1, 1, 1)  # b32
+        rec.netE.eval()
         encode_ms = cuda_ms(lambda: rec.encode(batch), iters=10)
         att32 = rec.encode(batch)
         render_ms = cuda_ms(lambda: dr.render(**att32), iters=10)
@@ -2225,6 +2586,7 @@ def main(profile_steps=0):
         rec, dr, photos = recs["default"]
         trainer = trainers["default"]
         batch = photos.repeat(8, 1, 1, 1)
+        rec.netE.eval()
         train_batch = synthetic_photos(dr, 32, SEED + 20)
         emit("profile_serving", shape="b32/128^2", card=card,
              **profile(lambda: rec(batch, generator=gen), profile_steps))
@@ -2237,25 +2599,37 @@ def main(profile_steps=0):
         emit("profile_d_update", shape="b32/128^2", card=card,
              **profile(_no_tf32()(lambda: update_d(trainer.state, outs, trainer.opt, draws,
                                                    3e-4, 1.0)), profile_steps))
+    del trainers, recs, models
+    torch.cuda.empty_cache()
+    lap("timing")
+    for name in RECIPES:
+        recipe_timing(name, card)
+    lap("recipe_timing")
+    for name in OPTION_SETS:
+        options_timing(name, card)
+    lap("options_timing")
 
-    # 8. the file front end of python train.py: a CUB-layout tree through
-    # cli.train.main; 9. the trainer around the step: epochs, SWA, EM, eval,
-    # FID, checkpoints
-    del trainers, recs
+    # 4.-5. the serving and training slices, 8.-10. the file front end, the
+    # trainer and the eval CLIs on its run, 11. the recipes' runs, the
+    # options' checks and 12. the tools: side by side, each lane a process of
+    # its own
+    gc.collect()
     torch.cuda.empty_cache()
-    frontend_launches, argv, outf = frontend_phase(card)
-    torch.cuda.empty_cache()
-    trainer_phase(card, argv, outf)
-    # 10. the evaluation and serving CLIs on that run
-    torch.cuda.empty_cache()
-    eval_launches = eval_clis_phase(card, outf)
-    # 11. the three published recipes through their CLIs
-    torch.cuda.empty_cache()
-    recipe_launches = recipes_phase(card)
-    # 12. generate_market on the Market recipe's run, template_animation on
-    # the front end's, and the host tools
-    torch.cuda.empty_cache()
-    tools_launches = tools_phase(card, outf)
+    emit("lanes_start", main_reserved_gib=torch.cuda.memory_reserved() / 2 ** 30)
+    results = run_lanes()
+    serve_launches = {**results["slices"]["serve_launches"],
+                      **results["slices_dense"]["serve_launches"]}
+    train_launches = {**results["slices"]["train_launches"],
+                      **results["slices_dense"]["train_launches"]}
+    frontend_launches = results["frontend"]["frontend"]
+    eval_launches = results["frontend"]["eval_clis"]
+    recipe_launches = results["recipes"]["recipes"]
+    tools_launches = results["tools"]["tools"]
+    option_launches = {}
+    for name in OPTION_SETS:
+        for k, v in results[name]["options"].items():
+            option_launches[k] = option_launches.get(k, 0) + v
+    lap("lanes")
 
     # the kernels' summary: name -> (source, the TPU kernel it replaces, the
     # configuration whose main path launches it, where its times were taken)
@@ -2305,6 +2679,7 @@ def main(profile_steps=0):
             "launches_recipes": recipe_launches.get(name, 0),
             "launches_eval_clis": eval_launches.get(name, 0),
             "launches_tools": tools_launches.get(name, 0),
+            "launches_options": option_launches.get(name, 0),
             "max_abs_err": errs[counted], "ms": t[f"{timed}_ms"],
             "warm_ms": t[f"{timed}_warm_ms"],
             "plain_ms": t[f"{timed}_plain_ms"], "bound_ms": t[f"{timed}_bound_ms"],
@@ -2323,4 +2698,10 @@ if __name__ == "__main__":
                         help="after the timing, trace STEPS serving steps with "
                              "torch.profiler and print the device's busy share, "
                              "launches and time by kernel group")
-    main(parser.parse_args().profile)
+    parser.add_argument("--lane", choices=sorted(LANES), help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.lane:  # one lane of run_lanes, started by the script itself
+        result = run_lane(args.lane, kernel_times.card())
+        print(json.dumps({"lane_result": result}), flush=True)
+    else:
+        main(args.profile)

@@ -4,8 +4,10 @@
 
     python -m magicmirror_torch.cli.train_market --name X --dataroot ../Market/hq/seg_hmr [flags]
 
-``main(argv, device="cpu")`` runs on the CPU.  The HMR body-mesh prior
-(``--hmr``) is not ported and raises.
+``main(argv, device="cpu")`` runs on the CPU.  With ``--hmr W`` the
+reconstruction also takes W times the chamfer distance to each photo's HMR
+body mesh, read from the ``bodymesh`` tree beside ``seg_hmr``
+(``data/market.py``).
 """
 from __future__ import annotations
 

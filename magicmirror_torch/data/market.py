@@ -5,9 +5,11 @@ arrays (``data/base.py``).
 Layout: ``<root>/{train_all,query}/<id>/*_0.XX.png`` masks under
 ``seg_hmr``, with the RGB photos at the same place under the sibling
 ``pytorch`` tree (PNG).  Target shape (2W, W): ratio 2, no pad-to-square.
-The HMR body-mesh prior (``hmr > 0``: chamfer to a mesh read with each
-photo) is not ported and raises; every item's ``obj`` is float32 -1, as the
-JAX dataset gives without it.
+With ``hmr > 0`` (the chamfer to the HMR body mesh) each item's ``obj`` is
+the vertices (N, 3) of ``bodymesh/.../<stem>.obj`` beside the mask (the
+mask's path with ``seg_hmr`` -> ``bodymesh`` and ``_<ratio>.png`` ->
+``.obj``), mirrored in x with the photo; without it float32 -1, as the JAX
+dataset gives.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import random
 import numpy as np
 
 from ..eval.images import read_image, resize_bicubic
+from ..geometry.obj_io import load_obj
 from .base import (ImageDataset, binarize, crop, expand, filter_by_fg_ratio, load_rgb,
                    resize_nearest, to_rgba_array)
 
@@ -31,8 +34,6 @@ class MarketDataset(ImageDataset):
     def __init__(self, root, image_size, train=True, aug=False,
                  threshold="0.09,0.64", bg=False, hmr=0.0, selected_index=(),
                  sub=""):
-        if hmr > 0.0:
-            raise NotImplementedError("hmr > 0 (the HMR body-mesh prior) is not ported")
         self.root = root
         self.bg = bg
         self.hmr = hmr
@@ -69,6 +70,11 @@ class MarketDataset(ImageDataset):
         img_path = img_path[:-9] + ".png"
         img = load_rgb(img_path)
         seg = _seg_loader(seg_path)
+        if self.hmr > 0.0:
+            obj_path = seg_path.replace("seg_hmr", "bodymesh")[:-9] + ".obj"
+            obj = load_obj(obj_path).vertices  # (6890, 3)
+        else:
+            obj = np.float32(-1)
         if self.train and self.aug:
             img = resize_bicubic(img, size)
             seg = binarize(resize_nearest(seg, size))
@@ -80,7 +86,9 @@ class MarketDataset(ImageDataset):
             img, seg = crop(img, box), crop(seg, box)
             if random.uniform(0, 1) < 0.5:
                 img, seg = img[:, ::-1], seg[:, ::-1]
+                if self.hmr > 0.0:
+                    obj = obj * np.float32([-1, 1, 1])
         img = resize_bicubic(img, size)
         seg = binarize(resize_nearest(seg, size))
         rgba = to_rgba_array(img, seg, self.bg)
-        return {"images": rgba, "path": img_path, "label": label, "obj": np.float32(-1)}
+        return {"images": rgba, "path": img_path, "label": label, "obj": obj}

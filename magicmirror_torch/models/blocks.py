@@ -53,7 +53,8 @@ class Dense(nn.Linear):
 
 class BatchNorm(_BatchNorm):
     """BatchNorm over dim 1 of (N, C) or (N, C, H, W) input with eps 1e-5
-    and momentum 0.1, as the JAX ``BatchNorm``.
+    and momentum 0.1, as the JAX ``BatchNorm`` (``momentum`` 0.01 is Flax's
+    own ``nn.BatchNorm``, whose running averages keep 0.99).
 
     In train mode the running variance follows the BIASED batch variance, as
     Flax's ``nn.BatchNorm`` keeps it (torch's own modules store the unbiased
@@ -61,8 +62,8 @@ class BatchNorm(_BatchNorm):
     batch statistics and leaves the running ones alone: a frozen branch of
     the encoder must not advance them."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, momentum: float = 0.1):
+        super().__init__(num_features, eps=1e-5, momentum=momentum)
         self.update_stats = True
 
     def _check_input_dim(self, input):
@@ -165,32 +166,90 @@ def upsample2x(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+class InstanceNorm(nn.Module):
+    """InstanceNorm2d of NCHW input: each sample's channel over H, W with
+    the biased variance, eps 1e-5; with ``affine`` a per-channel ``weight``
+    (Flax's ``scale``) and ``bias``."""
+
+    def __init__(self, features: int = 0, affine: bool = False):
+        super().__init__()
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        var, mean = torch.var_mean(x, dim=(2, 3), keepdim=True, correction=0)
+        y = (x - mean) * torch.rsqrt(var + 1e-5)
+        if self.affine:
+            y = y * self.weight[:, None, None] + self.bias[:, None, None]
+        return y
+
+
+class IBN(FlaxNamed):
+    """Half instance-, half batch-norm: the first ``features // 2`` channels
+    through an affine InstanceNorm (``IN``), the rest through BatchNorm
+    (``BN``)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.half = features // 2
+        self.child(InstanceNorm(self.half, affine=True), "IN")
+        self.child(BatchNorm(features - self.half), "BN")
+
+    def forward(self, x):
+        return torch.cat([self.IN(x[:, :self.half]), self.BN(x[:, self.half:])], dim=1)
+
+
+class LayerNormAll(nn.Module):
+    """Per-sample LayerNorm over every non-batch dim, ``(x - mean) / (std +
+    eps)`` with the population std, then a per-channel ``gamma`` and
+    ``beta``."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(features))
+        self.beta = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        flat = x.reshape(x.shape[0], -1)
+        std, mean = torch.std_mean(flat, dim=1, correction=0)
+        shape = (-1,) + (1,) * (x.dim() - 1)
+        y = (x - mean.reshape(shape)) / (std.reshape(shape) + 1e-5)
+        return y * self.gamma[:, None, None] + self.beta[:, None, None]
+
+
+NORMS = ("bn", "in", "ibn", "ln", "sn", "none")
+
+
 class Conv2dBlock(FlaxNamed):
-    """[coords] -> explicit pad -> VALID conv -> norm -> activation."""
+    """[coords] -> explicit pad -> VALID conv -> norm -> activation.  The norms:
+    'bn' BatchNorm, 'in' InstanceNorm, 'ibn' IBN, 'ln' LayerNormAll, and
+    'sn' or 'none' no norm; the conv has a bias unless the norm is 'bn'."""
 
     def __init__(self, cin: int, features: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, norm: str = "none", activation: str = "lrelu",
                  padding_mode: str = "zeros", dilation: int = 1,
                  coordconv: bool = False):
         super().__init__()
-        if norm not in ("bn", "none"):
-            raise NotImplementedError(f"norm={norm!r}: only 'bn' and 'none' are ported")
+        if norm not in NORMS:
+            raise ValueError(f"Unsupported normalization: {norm}")
         self.padding = padding
         self.padding_mode = padding_mode
         self.coordconv = coordconv
-        self.norm = norm
         self.act = _ACTS[activation]
         self.child(Conv(cin + 2 if coordconv else cin, features, kernel_size,
                         stride=stride, dilation=dilation, bias=norm != "bn"))
-        if norm == "bn":
-            self.child(BatchNorm(features))
+        make = {"bn": lambda: BatchNorm(features), "in": InstanceNorm,
+                "ibn": lambda: IBN(features), "ln": lambda: LayerNormAll(features)}.get(norm)
+        self.norm = None if make is None else self.child(make())._get_name() + "_0"
 
     def forward(self, x):
         if self.coordconv:
             x = add_coords_2d(x)
         x = self.Conv_0(pad_2d(x, self.padding, self.padding_mode))
-        if self.norm == "bn":
-            x = self.BatchNorm_0(x)
+        if self.norm is not None:
+            x = getattr(self, self.norm)(x)
         return x if self.act is None else self.act(x)
 
 
@@ -208,6 +267,12 @@ class ChannelAttention(FlaxNamed):
         return torch.sigmoid(self.Conv_1(F.relu(self.Conv_0(s))))
 
 
+def _second_norm(norm: str) -> str:
+    """The norm of a residual block's second conv: IBN's blocks end in
+    BatchNorm."""
+    return "bn" if norm == "ibn" else norm
+
+
 class ResBlock(FlaxNamed):
     """0.2-residual block."""
 
@@ -216,7 +281,7 @@ class ResBlock(FlaxNamed):
         super().__init__()
         self.child(Conv2dBlock(features, features // 2, 3, 1, 1, norm=norm,
                                activation=activation, padding_mode=padding_mode))
-        self.child(Conv2dBlock(features // 2, features, 3, 1, 1, norm=norm,
+        self.child(Conv2dBlock(features // 2, features, 3, 1, 1, norm=_second_norm(norm),
                                activation="none", padding_mode=padding_mode))
 
     def forward(self, x):
@@ -231,7 +296,7 @@ class ResBlockHalf(FlaxNamed):
         super().__init__()
         self.child(Conv2dBlock(features, features, 3, 2, 1, norm=norm,
                                activation=activation, padding_mode=padding_mode))
-        self.child(Conv2dBlock(features, features, 3, 1, 1, norm=norm,
+        self.child(Conv2dBlock(features, features, 3, 1, 1, norm=_second_norm(norm),
                                activation="none", padding_mode=padding_mode))
 
     def forward(self, x):

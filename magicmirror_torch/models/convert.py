@@ -4,8 +4,10 @@ JAX package's init laws from a seed.
 The port's modules carry the Flax names (``blocks.FlaxNamed``), so a Flax
 path ``a/b/Conv_0/kernel`` is the torch key ``a.b.Conv_0.weight``.  Layouts:
 conv HWIO -> OIHW, dense (in, out) -> (out, in), BatchNorm scale / bias /
-mean / var -> weight / bias / running_mean / running_var; ``MMPool.p`` as it
-is.  The inverse of ``magicmirror/models/convert_torch.py``.
+mean / var -> weight / bias / running_mean / running_var; ``MMPool.p``,
+``LayerNormAll``'s ``gamma`` / ``beta`` as they are; the affine InstanceNorm
+of ``IBN`` (``IN``) as BatchNorm's parameters; ``SNConv``'s raw HWIO kernel
+as any conv's.  The inverse of ``magicmirror/models/convert_torch.py``.
 """
 from __future__ import annotations
 
@@ -16,9 +18,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from .blocks import BatchNorm, MMPool
+from .blocks import BatchNorm, InstanceNorm, LayerNormAll, MMPool
+from .discriminators import SNConv
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "p": "p"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias", "p": "p",
+                 "gamma": "gamma", "beta": "beta"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -69,10 +73,13 @@ def load_flax_variables(model: nn.Module, params: Mapping,
 
 def init_from_seed(model: nn.Module, seed: int) -> nn.Module:
     """The JAX package's init laws (``magicmirror/models/blocks.py``),
-    drawn from a seeded ``torch.Generator``: conv and dense weights
-    kaiming-normal fan-in, classifier heads N(0, 1e-5), biases 0, BatchNorm
-    scale N(1, 0.02) with zero mean and unit variance, MMPool mix 0.  The
-    draws are made on the CPU, so the weights do not depend on the device."""
+    drawn from a seeded ``torch.Generator``: conv and dense weights (and
+    ``SNConv``'s raw kernel) kaiming-normal fan-in, classifier heads N(0,
+    1e-5), biases 0, BatchNorm scale N(1, 0.02) (1 for the landmark head's
+    Flax ``nn.BatchNorm``) with zero mean and unit variance, the affine
+    InstanceNorm's scale N(1, 0.02), LayerNormAll's gamma U(0, 1) and beta
+    0, MMPool mix 0.  The draws are made on the CPU, so the weights do not
+    depend on the device."""
     g = torch.Generator().manual_seed(seed)
 
     def normal(t, std, mean=0.0):
@@ -80,18 +87,27 @@ def init_from_seed(model: nn.Module, seed: int) -> nn.Module:
 
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Conv2d, nn.Linear)):
+            if isinstance(module, (nn.Conv2d, nn.Linear, SNConv)):
                 fan_in = module.weight[0].numel()
                 if getattr(module, "classifier", False):
                     normal(module.weight, 1e-5)
                 else:
                     normal(module.weight, math.sqrt(2.0 / fan_in))
-                if module.bias is not None:
+                if getattr(module, "bias", None) is not None:
                     module.bias.zero_()
             elif isinstance(module, BatchNorm):
-                normal(module.weight, 0.02, mean=1.0)
+                if getattr(module, "unit_scale", False):
+                    module.weight.fill_(1.0)
+                else:
+                    normal(module.weight, 0.02, mean=1.0)
                 module.bias.zero_()
                 module.reset_running_stats()
+            elif isinstance(module, InstanceNorm) and module.affine:
+                normal(module.weight, 0.02, mean=1.0)
+                module.bias.zero_()
+            elif isinstance(module, LayerNormAll):
+                module.gamma.copy_(torch.rand(module.gamma.shape, generator=g))
+                module.beta.zero_()
             elif isinstance(module, MMPool):
                 module.p.zero_()
     return model

@@ -11,10 +11,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops import clip01
 from ..ops.sampling import grid_sample
 from .backbones import Resnet4C, make_backbone, normalize_batch_4c
 from .blocks import (ASPP, BatchNorm, Conv2dBlock, Dense, Dropout, FlaxNamed, LinearBlock,
-                     MMPool, ResBlockHalf, ResBlocks, leaky_relu, upsample2x)
+                     MMPool, ResBlock, ResBlockHalf, ResBlocks, leaky_relu, upsample2x)
 
 
 def _sample_at_template(feat, template_xy, align_corners: bool):
@@ -37,22 +38,27 @@ def _nchw(x):
 
 class CameraEncoder(FlaxNamed):
     """Camera heads: distance and elevation via range-squashed sigmoids,
-    azimuth via the angle of a 2-vector, xy bias via tanh."""
+    azimuth via the angle of a 2-vector, xy bias via tanh; conditioned on the
+    pooled backbone features and, unless ``nolpl``, the features pooled at
+    the template's vertices."""
 
     def __init__(self, nc: int = 4, nk: int = 5, azi_scope: float = 360.0,
                  elev_range: str = "0~30", dist_range: str = "2~7",
                  coordconv: bool = False, norm: str = "bn", pretrain: str = "none",
-                 droprate: float = 0.0):
+                 droprate: float = 0.0, nolpl: bool = False):
         super().__init__()
         backbone, dim = make_backbone(pretrain, nc, nk, norm, coordconv)
+        self.nolpl = nolpl
         self.child(backbone, "backbone")
         self.child(MMPool((2, 2)), "avgpool1")
-        self.child(MMPool((2, 2)), "avgpool2")
+        if not nolpl:
+            self.child(MMPool((2, 2)), "avgpool2")
         self.azi_scope = azi_scope
         self.elev_min, self.elev_max = (float(v) for v in elev_range.split("~"))
         self.dist_min, self.dist_max = (float(v) for v in dist_range.split("~"))
         for head in ("dist", "azim", "bias"):
-            self.child(LinearBlock(dim * 2 * 4, 128, relu=False), f"{head}_lb")
+            self.child(LinearBlock(dim * 4 * (1 if nolpl else 2), 128, relu=False),
+                       f"{head}_lb")
             self.child(Dropout(droprate), f"{head}_drop")
             self.child(Dense(128, 2, classifier=True), f"{head}_out")
 
@@ -65,8 +71,11 @@ class CameraEncoder(FlaxNamed):
 
     def forward(self, x, template):
         x = self.backbone(_nchw(normalize_batch_4c(x)))
-        local = _sample_at_template(x, template[:, :2], align_corners=False)
-        x = torch.cat([self.avgpool1(x), self.avgpool2(local)], dim=1)
+        if self.nolpl:
+            x = self.avgpool1(x)
+        else:
+            local = _sample_at_template(x, template[:, :2], align_corners=False)
+            x = torch.cat([self.avgpool1(x), self.avgpool2(local)], dim=1)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten H, W, C
 
         def head(name):
@@ -86,16 +95,22 @@ class CameraEncoder(FlaxNamed):
 class ShapeEncoder(FlaxNamed):
     """Per-vertex deformation head: template-local, global and Laplacian
     neighbour features per vertex, a per-vertex MLP, a full (3V, 3V) linear;
-    offsets bounded by 0.5 * tanh and zero-meaned."""
+    with ``nolpl`` the pooled features through BatchNorm and a (C, 3V)
+    linear; offsets bounded by 0.5 * tanh and zero-meaned."""
 
     def __init__(self, nc: int = 4, nk: int = 5, num_vertices: int = 642,
                  pretrain: str = "hr18sv2", coordconv: bool = False, norm: str = "bn",
-                 droprate: float = 0.0):
+                 droprate: float = 0.0, nolpl: bool = False):
         super().__init__()
         self.num_vertices = num_vertices
+        self.nolpl = nolpl
         backbone, dim = make_backbone(pretrain, nc, nk, norm, coordconv)
         self.child(backbone, "backbone")
         self.child(MMPool((1, 1)), "mmpool")
+        if nolpl:
+            self.child(BatchNorm(dim), "bn")
+            self.child(Dense(dim, num_vertices * 3, classifier=True), "linear3")
+            return
         self.child(Dense(3 * dim + 3, 256), "conv1")
         self.child(BatchNorm(256), "bn1")
         self.child(Dropout(droprate), "drop1")
@@ -106,6 +121,10 @@ class ShapeEncoder(FlaxNamed):
     def forward(self, x, template, lpl):
         B, V = x.shape[0], self.num_vertices
         x = self.backbone(_nchw(normalize_batch_4c(x)))
+        if self.nolpl:
+            delta = 0.5 * torch.tanh(self.linear3(self.bn(self.mmpool(x).reshape(B, -1))))
+            delta = delta.reshape(B, V, 3)
+            return delta - delta.mean(dim=1, keepdim=True)
         local = _sample_at_template(x, template[:, :2], align_corners=True)
         local = local[..., 0].permute(0, 2, 1)  # (B, V, C)
         glob = self.mmpool(x).reshape(B, 1, -1).expand(B, V, -1)
@@ -203,12 +222,14 @@ class BiFPN(FlaxNamed):
 
 
 class TextureBiFPN(FlaxNamed):
-    """3x BiFPN decoder -> 2-channel texture flow in [-1, 1] at 4x the x2
-    resolution."""
+    """3x BiFPN decoder -> 2-channel texture flow at 4x the x2 resolution,
+    clipped to [-1, 1] with ``final_tanh``."""
 
-    def __init__(self, outdim: int, norm: str = "bn", droprate: float = 0.0):
+    def __init__(self, outdim: int, norm: str = "bn", droprate: float = 0.0,
+                 final_tanh: bool = True):
         super().__init__()
         d = outdim
+        self.final_tanh = final_tanh
         self.child(Dropout(droprate / 2), "drop")
         self.child(BiFPN(d, norm=norm, down=True))
         self.child(BiFPN(d, norm=norm, down=True))
@@ -225,18 +246,22 @@ class TextureBiFPN(FlaxNamed):
         h = self.Conv2dBlock_0(self.BiFPN_2(p))
         h = upsample2x(self.ASPP_0(h))
         h = self.drop(upsample2x(self.ASPP_1(self.Conv2dBlock_1(h))))
-        return clip01_signed(self.Conv2dBlock_2(h))  # Hardtanh
+        h = self.Conv2dBlock_2(h)
+        return clip01_signed(h) if self.final_tanh else h  # Hardtanh
 
 
 class TextureEncoder(FlaxNamed):
     """Texture flow: a pyramid (ResNet-34, or the 'none' residual pyramid) ->
     TextureBiFPN -> 2-channel flow -> bicubic sample of the input image ->
-    vertical concat with the flipped map -> (B, 2H, W, 3)."""
+    with ``makeup`` 1-4 a refinement of the sampled map beside its mirror
+    image (InstanceNorm blocks, added and clipped to [0, 1]; at 5 the flow
+    is not clipped) -> vertical concat with the flipped map -> (B, 2H, W, 3)."""
 
     def __init__(self, pretrain: str = "res34", norm: str = "bn", nk: int = 5,
-                 coordconv: bool = False, droprate: float = 0.0):
+                 coordconv: bool = False, droprate: float = 0.0, makeup: int = 0):
         super().__init__()
         self.pretrain = pretrain
+        self.makeup = makeup
         if pretrain == "res34":
             self.child(Resnet4C(arch="res34", stride=2, return_pyramid=True))
         elif pretrain == "none":
@@ -247,7 +272,18 @@ class TextureEncoder(FlaxNamed):
         else:
             raise NotImplementedError(
                 f"texture backbone {pretrain!r}: only 'res34' and 'none' are ported")
-        self.child(TextureBiFPN(512, norm=norm, droprate=droprate))
+        self.child(TextureBiFPN(512, norm=norm, droprate=droprate, final_tanh=makeup != 5))
+        self.refine = []  # the names of the refinement's layers, in order
+        if makeup in (1, 2, 3, 4):
+            layers = [Conv2dBlock(6, 32, 5, 1, 2, norm="in")]
+            if makeup in (1, 2):
+                layers += [ResBlock(32, norm="in"), ResBlock(32, norm="in")]
+            if makeup != 1:
+                layers.append(Dropout(droprate))
+            layers.append(Conv2dBlock(32, 3, 3, 1, 1, norm="none", activation="none"))
+            for layer in layers:
+                self.child(layer)
+                self.refine.append(next(reversed(self._modules)))
 
     def pyramid(self, x):
         if self.pretrain == "res34":
@@ -264,4 +300,25 @@ class TextureEncoder(FlaxNamed):
         x2, x3, x4, x5 = self.pyramid(_nchw(normalize_batch_4c(x)))
         flow = self.TextureBiFPN_0(x5, x4, x3, x2).permute(0, 2, 3, 1)
         textures = grid_sample(img, flow, mode="bicubic", align_corners=True)
+        if self.refine:
+            h = _nchw(torch.cat([textures, textures.flip(2)], dim=-1))
+            for name in self.refine:
+                h = getattr(self, name)(h)
+            textures = clip01(textures + h.permute(0, 2, 3, 1))
         return torch.cat([textures, textures.flip(1)], dim=1)
+
+
+class FeatureEncoder(FlaxNamed):
+    """Per-pixel features for the landmark-consistency head: NHWC RGBA ->
+    (B, H/4, W/4, 256) NHWC."""
+
+    def __init__(self, nc: int = 4, nk: int = 5, norm: str = "bn"):
+        super().__init__()
+        self.child(Conv2dBlock(nc, 64, nk, 2, nk // 2, norm=norm))
+        self.child(Conv2dBlock(64, 128, nk, 2, nk // 2, norm=norm))
+        self.child(Conv2dBlock(128, 256, 3, 1, 1, norm=norm))
+
+    def forward(self, x):
+        x = _nchw(normalize_batch_4c(x))
+        x = self.Conv2dBlock_2(self.Conv2dBlock_1(self.Conv2dBlock_0(x)))
+        return x.permute(0, 2, 3, 1)

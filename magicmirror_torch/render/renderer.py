@@ -131,9 +131,15 @@ class DiffRender:
         zeros = torch.zeros((B,), dtype=torch.int32, device=textures.device)
         attributes["dropped_faces"] = zeros
         attributes["dropped_tex_chunks"] = zeros
-        attributes["faces_image"] = face_vertices_image.mean(dim=2)
-        attributes["visiable_faces"] = (face_normals[..., 2] > 0).to(torch.float32)
+        attributes.update(_landmarks(face_vertices_image, face_normals))
         return rgbs, attributes
+
+    def landmarks(self, attributes):
+        """The landmark-consistency inputs of the attributes without a
+        render: {'faces_image': each face's projected centre (B, F, 2),
+        'visiable_faces': 1 where it faces the camera (B, F)}."""
+        _, face_vertices_image, face_normals = self.project(attributes)
+        return _landmarks(face_vertices_image, face_normals)
 
 
     # ------------------------------------------------------------------ losses
@@ -168,6 +174,11 @@ class DiffRender:
 
     def calc_reg_deform(self, delta_vertices):
         return mesh_reg.deform_loss(delta_vertices)
+
+
+def _landmarks(face_vertices_image, face_normals):
+    return {"faces_image": face_vertices_image.mean(dim=2),
+            "visiable_faces": (face_normals[..., 2] > 0).to(torch.float32)}
 
 
 def deep_copy(att: dict, index=None, detach: bool = False) -> dict:

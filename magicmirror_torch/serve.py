@@ -101,16 +101,9 @@ def preset_options(cls, name: str, **overrides):
 
 
 def unported_options(opt) -> list[str]:
-    """The settings of ``opt`` that the port's encoder does not cover."""
+    """The settings of ``opt`` that the port's encoder does not cover: the
+    backbones outside ``_BACKBONES``."""
     unported = []
-    if opt.makeup != 0:
-        unported.append(f"makeup={opt.makeup}")
-    if opt.lambda_lc > 0:
-        unported.append(f"lambda_lc={opt.lambda_lc}")
-    if opt.nolpl:
-        unported.append("nolpl")
-    if opt.norm != "bn":
-        unported.append(f"norm={opt.norm}")
     for flag, ported in _BACKBONES.items():
         if getattr(opt, flag) not in ported:
             unported.append(f"{flag}={getattr(opt, flag)}")
@@ -143,7 +136,9 @@ def build_models(opt, diff_render: DiffRender, device="cuda") -> AttributeEncode
         num_vertices=diff_render.num_vertices, azi_scope=opt.azi_scope,
         elev_range=opt.elev_range, dist_range=opt.dist_range, nc=4, nk=opt.nk,
         pretraint=opt.pretraint, pretrainc=opt.pretrainc, pretrains=opt.pretrains,
-        droprate=opt.droprate, coordconv=opt.coordconv, norm=opt.norm, bg=opt.bg)
+        droprate=opt.droprate, coordconv=opt.coordconv, norm=opt.norm, bg=opt.bg,
+        makeup=opt.makeup, nolpl=opt.nolpl, inv=opt.inv, lambda_lc=opt.lambda_lc,
+        num_faces=diff_render.num_faces)
     return netE.to(device).eval()
 
 

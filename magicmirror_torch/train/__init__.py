@@ -10,7 +10,9 @@ default (``serve.PRESETS``: ``market_smpl``, ``cub_exact`` and the three
 published recipes).  ``TrainOptions``
 holds the flags the step reads with the defaults of
 ``magicmirror/configs/flags.py``; an option outside the port raises
-``NotImplementedError`` (``multigpus`` and ``fp16`` among them).
+``NotImplementedError`` (``multigpus``, ``fp16`` and the backbones outside
+``serve._BACKBONES``).  The critic follows ``gan_type`` and ``sn_dis`` as
+the JAX trainer's ``build_models`` picks it.
 ``steps_per_call``, ``donate_state`` and ``band_capacity`` answer to limits
 of the TPU runtime; they are accepted and ignored: one step per batch, the
 JAX package's ``steps_per_call = 1``.  The epochs around the step are
@@ -24,8 +26,9 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models.attribute_encoder import make_inv_preconditioner
 from ..models.convert import init_from_seed
-from ..models.discriminators import Discriminator
+from ..models.discriminators import Discriminator, MSDiscriminator, SNDiscriminator
 from ..render.renderer import DiffRender
 from ..serve import PRESETS, ServeOptions, build_models, preset_options, unported_options
 from .optim import lr_schedule, make_optimizer_d, make_optimizer_e
@@ -108,19 +111,26 @@ class TrainOptions(ServeOptions):
 def unported_train_options(opt: TrainOptions) -> list[str]:
     """The settings of ``opt`` that the port's train step does not cover."""
     unported = unported_options(opt)
-    if opt.gan_type != "wgan":
-        unported.append(f"gan_type={opt.gan_type}")
-    if opt.sn_dis:
-        unported.append(f"sn_dis={opt.sn_dis}")
-    if opt.adamw and not opt.amsgrad:
-        unported.append("adamw without amsgrad")
     for flag in ("multigpus", "fp16"):
         if getattr(opt, flag):
             unported.append(flag)
-    for flag in ("inv", "dis1", "dis2", "hmr"):
-        if getattr(opt, flag) > 0:
-            unported.append(f"{flag}={getattr(opt, flag)}")
     return unported
+
+
+def build_discriminator(opt: TrainOptions):
+    """The critic of ``opt``, as the JAX trainer's ``build_models`` picks
+    it: with ``sn_dis`` the spectral-norm critic (WGAN losses only), else
+    the WGAN critic or, for ``gan_type lsgan``, the multi-scale one."""
+    nc = 4 if opt.unmask == 2 else 3
+    if opt.sn_dis:
+        if opt.gan_type != "wgan":
+            raise ValueError("--sn_dis requires --gan_type wgan")
+        return SNDiscriminator(nc=nc, imsize=opt.imageSize)
+    if opt.gan_type == "wgan":
+        return Discriminator(nc=nc, nf=16)
+    if opt.gan_type == "lsgan":
+        return MSDiscriminator(nc=nc, nf=16)
+    raise ValueError("unknown gan type. Only lsgan or wgan is accepted.")
 
 
 # the flags of ``configs.flags.build_parser`` that are not TrainOptions: the
@@ -163,10 +173,10 @@ class Trainer:
         self.generator = generator
         state.netE.set_dropout_generator(generator)
 
-    def step(self, Xa, lr_e, lr_d, warm_up=1.0, train_shape=0, draws=None):
+    def step(self, Xa, lr_e, lr_d, warm_up=1.0, train_shape=0, draws=None, Va=None):
         return train_step(self.state, self.diff_render, self.opt, Xa, lr_e, lr_d,
                           warm_up=warm_up, train_shape=train_shape, draws=draws,
-                          generator=self.generator)
+                          generator=self.generator, Va=Va)
 
 
 def build_trainer(opt: TrainOptions, device="cuda") -> Trainer:
@@ -182,13 +192,17 @@ def build_trainer(opt: TrainOptions, device="cuda") -> Trainer:
                              lambda_lpl=opt.lambda_lpl, lambda_flat=opt.lambda_flat,
                              soft_mode=opt.soft_mode, device=device)
     netE = init_from_seed(build_models(opt, diff_render, "cpu"), opt.manualSeed).to(device)
-    netD = init_from_seed(Discriminator(nc=4 if opt.unmask == 2 else 3, nf=16),
-                          opt.manualSeed + 1).to(device)
+    netD = init_from_seed(build_discriminator(opt), opt.manualSeed + 1).to(device)
+    lpl = diff_render.vertices_laplacian_matrix
+    precond_M = (torch.as_tensor(make_inv_preconditioner(lpl.cpu().numpy(), opt.inv),
+                                 device=device) if opt.inv > 0 else None)
     state = TrainState(
         netE=netE, netD=netD,
-        opt_e=make_optimizer_e(netE, beta1=opt.beta1, wd=opt.wd, amsgrad=opt.amsgrad),
+        opt_e=make_optimizer_e(netE, beta1=opt.beta1, wd=opt.wd, amsgrad=opt.amsgrad,
+                               adamw=opt.adamw),
         opt_d=make_optimizer_d(netD, beta1=opt.beta1, wd=opt.wd, amsgrad=opt.amsgrad),
         template=diff_render.vertices_init.clone(),
-        em_step=float(np.float32(opt.em_step)))  # a float32 scalar, as in the JAX state
+        em_step=float(np.float32(opt.em_step)),  # a float32 scalar, as in the JAX state
+        precond_M=precond_M)
     generator = torch.Generator(device=device).manual_seed(opt.manualSeed)
     return Trainer(opt, diff_render, state, generator)

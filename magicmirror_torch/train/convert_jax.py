@@ -18,15 +18,25 @@ What is converted:
     ``swa_params`` / ``swa_stats`` -> ``swa_netE``, through
     ``models/convert.py`` (HWIO -> OIHW, dense transposed);
   * ``template``, ``em_step``, ``swa_n``, ``epoch`` and ``step``;
-  * the optimizers.  The JAX package runs ``flatten_groupscale`` over
-    ``optax.amsgrad`` (``magicmirror/train/optim.py:47-91``, ``flat=True``):
-    its state is ``(ScaleByAmsgradState(count, mu, nu, nu_max), EmptyState())``
-    with ``mu``, ``nu`` and ``nu_max`` each ONE raveled vector over the
-    parameter leaves in ``jax.tree_util`` order (keys sorted at every
-    level).  They are unravelled by the leaf shapes, laid out as the
-    weights, and become ``train/optim.py::Amsgrad``'s per-parameter state,
-    with ``count`` as every group's step count.  Any other layout (a
-    chained weight decay, plain Adam, ``flat=False``) raises and names it.
+  * the critic, whichever of the three the run trains (``Discriminator``,
+    ``MSDiscriminator`` of ``--gan_type lsgan``, ``SNDiscriminator`` of
+    ``--sn_dis``);
+  * the optimizers.  The JAX package runs ``flatten_groupscale``
+    (``magicmirror/train/optim.py:47-91``, ``flat=True``) over optax
+    ``amsgrad`` (the default), over ``adamw`` for the encoder under
+    ``--adamw`` without ``--amsgrad``, and over a chain of a weight decay
+    (or the identity) and ``adam`` otherwise (the critic of such a run):
+    their states are ``(ScaleByAmsgradState(count, mu, nu, nu_max),
+    EmptyState())``, ``(ScaleByAdamState(count, mu, nu), EmptyState(),
+    EmptyState())`` and ``(EmptyState(), (ScaleByAdamState(count, mu, nu),
+    EmptyState()))``, with ``mu``, ``nu`` (and ``nu_max``) each ONE raveled
+    vector over the parameter leaves in ``jax.tree_util`` order (keys
+    sorted at every level).  They are unravelled by the leaf shapes, laid
+    out as the weights, and become ``train/optim.py::Amsgrad``'s
+    per-parameter state, with ``count`` as every group's step count.  The
+    layout expected is the port optimizer's (AMSGrad, decoupled or not); any
+    other (a weight decay chained before amsgrad, ``flat=False``) raises and
+    names it.
 
 numpy and torch only.
 """
@@ -42,6 +52,17 @@ import torch
 from ..models.convert import flax_to_state_dict, load_flax_variables
 
 AMSGRAD_FIELDS = ("count", "mu", "nu", "nu_max")
+ADAM_FIELDS = ("count", "mu", "nu")
+# optimizer -> (the tuple indices down to its moments' state, the size of
+# each tuple on the way, the state's fields, the layout in words)
+LAYOUTS = {
+    "amsgrad": ((0,), (2,), AMSGRAD_FIELDS,
+                "(ScaleByAmsgradState(count, mu, nu, nu_max), EmptyState())"),
+    "adamw": ((0,), (3,), ADAM_FIELDS,
+              "(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())"),
+    "adam": ((1, 0), (2, 2), ADAM_FIELDS,
+             "(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))"),
+}
 
 
 def unflatten_npz(arrays: Mapping) -> dict:
@@ -86,28 +107,32 @@ def _leaves(tree: Mapping, prefix: tuple = ()):
             yield prefix + (str(key),), np.asarray(value)
 
 
-def amsgrad_state(opt_state, what: str) -> dict:
-    """The ``ScaleByAmsgradState`` fields of a ``flatten_groupscale`` over
-    ``optax.amsgrad`` state -> {count, mu, nu, nu_max}; another layout
-    raises ``ValueError`` naming it."""
-    parts = _elements(opt_state)
-    layout = ("the port converts flatten_groupscale over optax.amsgrad (flat=True, no "
-              "weight decay): (ScaleByAmsgradState(count, mu, nu, nu_max), EmptyState())")
-    if (parts is None or 0 not in parts or not set(parts) <= {0, 1}
-            or not _empty(parts.get(1))):
+def amsgrad_state(opt_state, what: str, layout: str = "amsgrad") -> dict:
+    """The moments' fields of a ``flatten_groupscale`` state of ``layout``
+    (``LAYOUTS``: optax amsgrad, adamw, or adam after a chained decay) ->
+    {count, mu, nu[, nu_max]}; another layout raises ``ValueError`` naming
+    it."""
+    path, sizes, fields, words = LAYOUTS[layout]
+    expected = (f"the port converts flatten_groupscale (flat=True) over optax {layout}: "
+                f"{words}")
+    node = opt_state
+    for index, size in zip(path, sizes):
+        parts = _elements(node)
+        if (parts is None or index not in parts or not set(parts) <= set(range(size))
+                or not all(_empty(v) for k, v in parts.items() if k != index)):
+            raise ValueError(f"{what}: unsupported optimizer state layout "
+                             f"{_describe(opt_state)}; {expected}")
+        node = parts[index]
+    if hasattr(node, "_asdict"):
+        node = node._asdict()  # the namedtuple itself
+    if not isinstance(node, Mapping) or set(node) != set(fields):
         raise ValueError(f"{what}: unsupported optimizer state layout "
-                         f"{_describe(opt_state)}; {layout}")
-    inner = parts[0]
-    if hasattr(inner, "_asdict"):
-        inner = inner._asdict()  # the namedtuple itself
-    if not isinstance(inner, Mapping) or set(inner) != set(AMSGRAD_FIELDS):
-        raise ValueError(f"{what}: unsupported optimizer state layout "
-                         f"{_describe(opt_state)} (a chained weight decay, plain Adam or "
-                         f"flat=False); {layout}")
-    out = {k: np.asarray(inner[k]) for k in AMSGRAD_FIELDS}
-    if any(out[k].ndim != 1 for k in ("mu", "nu", "nu_max")):
-        raise ValueError(f"{what}: mu / nu / nu_max are not raveled vectors (flat=False?); "
-                         f"{layout}")
+                         f"{_describe(opt_state)} (a chained weight decay, another "
+                         f"optimizer or flat=False); {expected}")
+    out = {k: np.asarray(node[k]) for k in fields}
+    if any(out[k].ndim != 1 for k in fields[1:]):
+        raise ValueError(f"{what}: the moments are not raveled vectors (flat=False?); "
+                         f"{expected}")
     return out
 
 
@@ -135,11 +160,14 @@ def _as_torch(path: tuple, a: np.ndarray) -> tuple[str, np.ndarray]:
     return key, value
 
 
-def unravel_amsgrad(params: Mapping, opt_state, what: str) -> tuple[int, dict]:
+def unravel_amsgrad(params: Mapping, opt_state, what: str,
+                    layout: str = "amsgrad") -> tuple[int, dict]:
     """-> (count, {torch key: {"mu", "nu", "nu_max"} in the torch layout}):
     the raveled vectors cut by the leaf sizes of ``params`` in
-    ``jax.tree_util`` order."""
-    st = amsgrad_state(opt_state, what)
+    ``jax.tree_util`` order; Adam's states have no running maximum, and
+    ``nu_max`` is zero."""
+    st = amsgrad_state(opt_state, what, layout)
+    st.setdefault("nu_max", np.zeros_like(st["nu"]))
     leaves = list(_leaves(params))
     total = sum(a.size for _, a in leaves)
     if st["mu"].shape[0] != total:
@@ -155,12 +183,22 @@ def unravel_amsgrad(params: Mapping, opt_state, what: str) -> tuple[int, dict]:
     return int(st["count"]), out
 
 
+def optimizer_layout(optimizer) -> str:
+    """The ``LAYOUTS`` entry of the JAX optimizer the port's ``optimizer``
+    (an ``Amsgrad``) stands for."""
+    group = optimizer.param_groups[0]
+    if group["amsgrad"]:
+        return "amsgrad"
+    return "adamw" if group.get("decoupled") else "adam"
+
+
 def load_amsgrad(optimizer, module: torch.nn.Module, params: Mapping, opt_state,
                  what: str) -> None:
     """Fill ``optimizer`` (an ``Amsgrad`` over ``module``'s parameters) from
-    the JAX optimizer state of ``params``: every parameter's moments, and
+    the JAX optimizer state of ``params``, of the layout its own rule
+    implies (:func:`optimizer_layout`): every parameter's moments, and
     ``count`` as every group's step count."""
-    count, moments = unravel_amsgrad(params, opt_state, what)
+    count, moments = unravel_amsgrad(params, opt_state, what, optimizer_layout(optimizer))
     names = {p: n for n, p in module.named_parameters()}
     for group in optimizer.param_groups:
         group["count"] = count

@@ -8,7 +8,8 @@ keeps the maximum of the raw second moment and corrects it by the current
 step's bias afterwards; the two rules part whenever the second moment falls
 (beyond 1e-6 from the second step on), so the port carries the rule itself.
 The encoder's ``shape_enc.backbone`` parameters form a group at 0.05x the
-learning rate.
+learning rate.  ``--adamw`` without ``--amsgrad`` is optax ``adamw``: Adam
+with the decay decoupled from the gradient.
 """
 from __future__ import annotations
 
@@ -25,12 +26,20 @@ class Amsgrad(torch.optim.Optimizer):
         nu_max = max(nu_max, nu / (1 - b2^t))
         p -= lr * scale * (mu / (1 - b1^t)) / (sqrt(nu_max) + eps)
 
+    With ``decoupled`` (and ``amsgrad`` off) the decay is optax ``adamw``'s,
+    taken from the parameter before the step and not from the gradient:
+
+        p -= lr * scale * ((mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p)
+
     ``lr`` and ``scale`` are per group; :meth:`set_lr` sets every group's lr."""
 
     def __init__(self, params, lr: float = 1e-4, betas=(0.5, 0.999), eps: float = 1e-8,
-                 weight_decay: float = 0.0, amsgrad: bool = True):
+                 weight_decay: float = 0.0, amsgrad: bool = True, decoupled: bool = False):
+        if decoupled and amsgrad:
+            raise ValueError("the decoupled decay is adamw's, which has no amsgrad")
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, scale=1.0,
-                                      weight_decay=weight_decay, amsgrad=amsgrad))
+                                      weight_decay=weight_decay, amsgrad=amsgrad,
+                                      decoupled=decoupled))
 
     def set_lr(self, lr: float) -> None:
         for group in self.param_groups:
@@ -54,7 +63,8 @@ class Amsgrad(torch.optim.Optimizer):
             mus = [self.state[p]["mu"] for p in params]
             nus = [self.state[p]["nu"] for p in params]
             nu_maxs = [self.state[p]["nu_max"] for p in params]
-            if group["weight_decay"] > 0:
+            decay = group["weight_decay"] if group.get("decoupled") else 0.0
+            if group["weight_decay"] > 0 and not decay:
                 grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
             torch._foreach_lerp_(mus, grads, 1.0 - b1)
             torch._foreach_mul_(nus, b2)
@@ -65,18 +75,29 @@ class Amsgrad(torch.optim.Optimizer):
                 nu_hat = nu_maxs
             denom = torch._foreach_sqrt(nu_hat)
             torch._foreach_add_(denom, group["eps"])
+            if decay:  # optax adamw's order: the update, plus wd * p, scaled, then lr
+                upd = torch._foreach_div(mus, 1.0 - b1 ** count)
+                torch._foreach_div_(upd, denom)
+                torch._foreach_add_(upd, params, alpha=decay)
+                torch._foreach_mul_(upd, -group["scale"])
+                torch._foreach_mul_(upd, group["lr"])
+                torch._foreach_add_(params, upd)
+                continue
             step_size = group["lr"] * group["scale"] / (1.0 - b1 ** count)
             torch._foreach_addcdiv_(params, mus, denom, value=-step_size)
 
 
 def make_optimizer_e(netE, beta1: float = 0.5, wd: float = 0.0, amsgrad: bool = True,
-                     backbone_scale: float = 0.05) -> Amsgrad:
+                     backbone_scale: float = 0.05, adamw: bool = False) -> Amsgrad:
     """The encoder's optimizer: the ``shape_enc.backbone`` parameters run at
-    ``backbone_scale`` times the learning rate."""
+    ``backbone_scale`` times the learning rate; ``adamw`` without
+    ``amsgrad`` decouples the decay (with amsgrad it is the L2 term, as the
+    JAX package chains it)."""
     backbone = [p for n, p in netE.named_parameters() if n.startswith("shape_enc.backbone.")]
     main = [p for n, p in netE.named_parameters() if not n.startswith("shape_enc.backbone.")]
     return Amsgrad([{"params": main}, {"params": backbone, "scale": backbone_scale}],
-                   betas=(beta1, 0.999), weight_decay=wd, amsgrad=amsgrad)
+                   betas=(beta1, 0.999), weight_decay=wd, amsgrad=amsgrad,
+                   decoupled=adamw and not amsgrad)
 
 
 def make_optimizer_d(netD, beta1: float = 0.5, wd: float = 0.0,

@@ -2,7 +2,8 @@
 ``magicmirror/train/state.py``.
 
 ``TrainState`` holds the two networks, their optimizers, the live template,
-the EM step size, the SWA average of the encoder (parameters and BatchNorm
+with ``inv > 0`` the shape gradient's preconditioner (built from the
+template's Laplacian, which the EM update leaves as it is), the EM step size, the SWA average of the encoder (parameters and BatchNorm
 buffers, a module of its own) with the count of models in it, the epoch and
 the step count.  ``swa_update`` and ``update_bn`` are the counterparts of
 ``swa_update`` and ``make_update_bn``.
@@ -16,7 +17,6 @@ import torch
 
 from ..models.attribute_encoder import AttributeEncoder
 from ..models.blocks import Dropout
-from ..models.discriminators import Discriminator
 from ..serve import _no_tf32
 from .optim import Amsgrad
 
@@ -24,7 +24,7 @@ from .optim import Amsgrad
 @dataclasses.dataclass
 class TrainState:
     netE: AttributeEncoder
-    netD: Discriminator
+    netD: torch.nn.Module  # one of models/discriminators.py's critics
     opt_e: Amsgrad
     opt_d: Amsgrad
     template: torch.Tensor  # (V, 3) live template (vertices_init)
@@ -33,6 +33,7 @@ class TrainState:
     swa_netE: AttributeEncoder | None = None  # the SWA average; a copy of netE when None
     swa_n: int = 0  # number of models averaged
     epoch: int = 0
+    precond_M: torch.Tensor | None = None  # (V, V), with inv > 0
 
     def __post_init__(self):
         if self.swa_netE is None:

@@ -12,8 +12,8 @@ template update before ``swa_start``.
     trainer(opt, train_dl, test_dl, noaug_dl, outf)           # on the card
 
 The loaders are iterables with ``len()`` of ``{"images": (B, H, W, 4)
-float32 RGBA, "path": [names]}``; the trainer moves the images to its
-device.  The artifacts go to ``outf`` in the reference's layout::
+float32 RGBA, "path": [names]}`` (with ``hmr``, ``"obj"``: the photos' body
+meshes (B, N, 3)); the trainer moves them to its device.  The artifacts go to ``outf`` in the reference's layout::
 
     outf/  train_step.py, trainer.py, renderer.py (the code of the run),
            result.txt, logs/scalars.csv, epoch_%03d_* and current_* images,
@@ -252,8 +252,10 @@ def trainer(opt, train_dl, test_dl, noaug_dl, outf, device="cuda", timings=None)
             for it, data in enumerate(train_dl):
                 warm_up = _warm_up(warm_up, epoch, opt, warm_iteration)
                 Xa = _images(data, device)
+                Va = (torch.as_tensor(np.asarray(data["obj"]), dtype=torch.float32,
+                                      device=device) if opt.hmr > 0 and "obj" in data else None)
                 metrics, Xer, Xir = train.step(Xa, lr_e, lr_d, warm_up=warm_up,
-                                               train_shape=_train_shape_policy(opt, it))
+                                               train_shape=_train_shape_policy(opt, it), Va=Va)
                 if it % 10 == 0:
                     _print_iter(outf, opt, epoch, it, n_iters,
                                 {k: float(v) for k, v in metrics.items()})

@@ -75,9 +75,13 @@ def test_serve_options_from_the_parsed_flags():
     opt = serve_options(ns)
     assert (opt.imageSize, opt.ratio, opt.soft_mode, opt.bg) == (64, 2.0, "exact", True)
     assert serve_options(jbuild_parser().parse_args([])) == ServeOptions()
-    for bad in (["--norm", "in"], ["--pretrains", "res50"], ["--makeup", "1"]):
+    for bad in (["--pretrainc", "res18"], ["--pretrains", "res50"], ["--pretraint", "swin"]):
         with pytest.raises(NotImplementedError):
             serve_options(jbuild_parser().parse_args(bad))
+    # the encoder options a run was trained with are served
+    opt = serve_options(jbuild_parser().parse_args(["--norm", "in", "--makeup", "1", "--nolpl",
+                                                    "--lambda_lc", "0.1"]))
+    assert (opt.norm, opt.makeup, opt.nolpl, opt.lambda_lc) == ("in", 1, True, 0.1)
     # a namespace of opts.yaml's keys alone
     assert serve_options(argparse.Namespace(imageSize=32)).imageSize == 32
 

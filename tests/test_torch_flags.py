@@ -62,18 +62,23 @@ def test_opts_yaml_is_the_jax_packages(tmp_path, monkeypatch, argv):
 def test_train_options_from_the_parsed_flags():
     """The fields of TrainOptions come from the flags; the CLI's and the
     ignored TPU flags are left out; an unported flag at another value than
-    its default raises, at its default it does not."""
+    its default raises, at its default it does not; the encoder, critic and
+    loss options are taken."""
     opt = train_options(flags.build_parser().parse_args(
         ["--lr", "3e-4", "--niter", "7", "--steps_per_call", "1", "--donate_state",
          "--band_capacity", "320", "--raster_backend", "xla", "--hard_range", "30"]))
     assert isinstance(opt, TrainOptions)
     assert (opt.lr, opt.niter, opt.imageSize, opt.template_path, opt.hard_range) == (
         3e-4, 7, 128, "./template/sphere.obj", 30)
-    for argv in (["--multigpus"], ["--fp16"], ["--makeup", "1"],
-                 ["--gan_type", "lsgan"], ["--pretrainc", "res18"], ["--norm", "in"],
-                 ["--inv", "1"], ["--lambda_lc", "1"], ["--hmr", "1"], ["--dis1", "0.5"]):
+    for argv in (["--multigpus"], ["--fp16"], ["--pretrainc", "res18"],
+                 ["--pretrains", "res50"], ["--pretraint", "swin"]):
         with pytest.raises(NotImplementedError):
             train_options(flags.build_parser().parse_args(argv))
+    lifted = train_options(flags.build_parser().parse_args(
+        ["--makeup", "1", "--gan_type", "lsgan", "--norm", "in", "--inv", "1",
+         "--lambda_lc", "1", "--hmr", "1", "--dis1", "0.5"]))
+    assert (lifted.makeup, lifted.gan_type, lifted.norm, lifted.inv, lifted.lambda_lc,
+            lifted.hmr, lifted.dis1) == (1, "lsgan", "in", 1.0, 1.0, 1.0, 0.5)
     ns = flags.build_parser().parse_args([])
     ns.something_new = 1
     with pytest.raises(ValueError, match="something_new"):

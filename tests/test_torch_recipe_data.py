@@ -151,6 +151,41 @@ def test_split_lists_are_the_jax_packages():
     assert len(atr.read_split("/nowhere", False)) == 1706
 
 
+def body_meshes(seg_root, n_vertices=20, seed=3):
+    """``bodymesh/<split>/<id>/<stem>.obj`` beside ``seg_root`` (the
+    ``seg_hmr`` tree) for every mask of it: seeded vertices, one face."""
+    rs = np.random.RandomState(seed)
+    for split in ("train_all", "query"):
+        for ident in sorted(os.listdir(os.path.join(seg_root, split))):
+            for mask in sorted(os.listdir(os.path.join(seg_root, split, ident))):
+                d = os.path.join(os.path.dirname(seg_root), "bodymesh", split, ident)
+                os.makedirs(d, exist_ok=True)
+                with open(os.path.join(d, mask[:-9] + ".obj"), "w") as fp:
+                    for v in rs.randn(n_vertices, 3):
+                        fp.write("v %.6f %.6f %.6f\n" % tuple(v))
+                    fp.write("f 1 2 3\n")
+
+
 def test_market_body_mesh_prior_is_not_ported(trees):
-    with pytest.raises(NotImplementedError, match="hmr"):
-        MarketDataset(trees["market"], 16, hmr=1.0)
+    """The HMR body-mesh prior (``hmr > 0``), now ported: each item's
+    ``obj`` is the vertices of the mesh beside its mask, mirrored in x with
+    the photo, exactly the JAX dataset's, in every split and mode."""
+    root = trees["market"]
+    if not os.path.isdir(os.path.join(os.path.dirname(root), "bodymesh")):
+        body_meshes(root)
+    for train, aug in ((True, True), (True, False), (False, False)):
+        kw = dict(train=train, aug=aug, threshold="0.1,0.9", hmr=1.0)
+        ours, ref = MarketDataset(root, 16, **kw), JMarketDataset(root, 16, **kw)
+        flips = 0
+        for i in range(len(ours)):
+            random.seed(200 + i)
+            a = ours[i]
+            random.seed(200 + i)
+            r = ref[i]
+            assert a["obj"].shape == (20, 3) and a["obj"].dtype == np.float32
+            np.testing.assert_array_equal(a["obj"], r["obj"])
+            np.testing.assert_array_equal(a["images"][..., 3], r["images"][..., 3])
+            plain = MarketDataset(root, 16, train=train, aug=False, hmr=1.0,
+                                  threshold="0.1,0.9")[i]["obj"]
+            flips += int(not np.array_equal(a["obj"], plain))
+        assert (flips > 0) == aug, flips

@@ -130,9 +130,12 @@ def test_serve_options_defaults_are_the_flag_defaults():
         assert getattr(opt, field.name) == field.default, field.name
 
 
-@pytest.mark.parametrize("change", [{"norm": "in"}, {"makeup": 1}, {"lambda_lc": 0.1},
-                                   {"nolpl": True}, {"pretrains": "res50"},
-                                   {"pretraint": "swin"}, {"pretrainc": "res18"}])
+# the backbones outside the port (the encoder options norm, makeup, nolpl,
+# inv and lambda_lc are ported: tests/test_torch_option_convert.py)
+@pytest.mark.parametrize("change", [{"pretrainc": "res34"}, {"pretrains": "unet"},
+                                   {"pretraint": "res50"}, {"pretrains": "swin"},
+                                   {"pretrains": "res50"}, {"pretraint": "swin"},
+                                   {"pretrainc": "res18"}])
 def test_options_outside_the_port_raise(change):
     dr = DiffRender(SPHERE, S, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -42,11 +42,14 @@ def test_train_options_defaults_are_the_flag_defaults():
         assert getattr(opt, field.name) == field.default, field.name
 
 
+# the backbones outside the port, multigpus and fp16 (the encoder, critic and
+# loss options are ported: tests/test_torch_option_convert.py)
 @pytest.mark.parametrize("change", [
-    {"nolpl": True}, {"pretraint": "swin"}, {"inv": 0.1}, {"dis1": 0.1}, {"dis2": 0.1},
-    {"lambda_lc": 0.1}, {"gan_type": "lsgan"}, {"hmr": 1.0}, {"makeup": 1},
-    {"norm": "in"}, {"pretrains": "res50"}, {"sn_dis": 1},
-    {"adamw": True, "amsgrad": False}, {"multigpus": True}, {"fp16": True}])
+    {"pretrainc": "res18"}, {"pretraint": "swin"}, {"pretrainc": "res34"},
+    {"pretrainc": "unet"}, {"pretrains": "unet"}, {"pretrains": "res18"},
+    {"pretrains": "densenet121"}, {"pretrains": "swin"}, {"pretraint": "res18"},
+    {"pretraint": "res50"}, {"pretrains": "res50"}, {"pretraint": "unet"},
+    {"pretraint": "densenet161"}, {"multigpus": True}, {"fp16": True}])
 def test_options_outside_the_port_raise(change):
     with pytest.raises(NotImplementedError, match=next(iter(change))):
         build_trainer(_tiny(**change), device="cpu")

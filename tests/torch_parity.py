@@ -37,7 +37,8 @@ def flax_shapes(module, *args, **kwargs):
 def random_variables(shapes, seed: int = 0):
     """numpy Flax variables for ``shapes``: kernels kaiming-normal fan-in,
     biases N(0, 0.1), BatchNorm scale 1 + N(0, 0.1), running mean N(0, 0.1)
-    and var U(0.5, 1.5), MMPool mix N(0, 1)."""
+    and var U(0.5, 1.5), MMPool mix N(0, 1), LayerNormAll's gamma U(0.5,
+    1.5) and beta N(0, 0.1)."""
     rs = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -48,9 +49,9 @@ def random_variables(shapes, seed: int = 0):
             a = rs.randn(*shape) * np.sqrt(2.0 / fan_in)
         elif leaf == "scale":
             a = 1.0 + 0.1 * rs.randn(*shape)
-        elif leaf in ("bias", "mean"):
+        elif leaf in ("bias", "mean", "beta"):
             a = 0.1 * rs.randn(*shape)
-        elif leaf == "var":
+        elif leaf in ("var", "gamma"):
             a = rs.uniform(0.5, 1.5, shape)
         elif leaf == "p":
             a = rs.randn(*shape)
@@ -99,7 +100,8 @@ def train_pair(jmodule, tmodule, jargs, seed):
     ref, mutated = jax.jit(lambda v, *a: jmodule.apply(
         v, *a, train=True, rngs=DROP, mutable=["batch_stats"]))(variables, *jargs)
     load_flax_variables(tmodule, variables["params"], variables.get("batch_stats"))
-    return ref, flax_to_state_dict({}, jax.device_get(mutated["batch_stats"])), tmodule.train()
+    stats = jax.device_get(mutated.get("batch_stats", {}))
+    return ref, flax_to_state_dict({}, stats), tmodule.train()
 
 
 def assert_stats(module, ref_stats, tol):
@@ -173,9 +175,12 @@ def jax_run(root, name="clitest", dataroot="", extra=(), seed=0):
         dr = JDiffRender(opt.template_path, opt.imageSize, ratio=opt.ratio,
                          init_ellipsoid=opt.ellipsoid)
         netE, netD = build_models(opt, dr)
-        shapes = zeros_train_state(jax.random.PRNGKey(0), netE, netD, make_optimizer_e(),
-                                   make_optimizer_d(), np.zeros((1, H, opt.imageSize, 4),
-                                                                np.float32),
+        # the JAX trainer's optimizers for the run's flags
+        opt_e = make_optimizer_e(adamw=opt.adamw, beta1=opt.beta1, wd=opt.wd,
+                                 amsgrad=opt.amsgrad)
+        opt_d = make_optimizer_d(beta1=opt.beta1, wd=opt.wd, amsgrad=opt.amsgrad)
+        shapes = zeros_train_state(jax.random.PRNGKey(0), netE, netD, opt_e, opt_d,
+                                   np.zeros((1, H, opt.imageSize, 4), np.float32),
                                    dr.vertices_init, dr.vertices_laplacian_matrix)
         rs = np.random.RandomState(seed)
         enc = [random_variables({"params": shapes.params_e, "batch_stats": shapes.stats_e},
