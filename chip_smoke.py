@@ -134,6 +134,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2449,8 +2450,9 @@ def run_lane(name, card):
 def run_lanes():
     """Run every lane of LANES, each once the lanes it waits for have ended,
     their lines relayed as they come with the lane's name in them -> {lane:
-    its results}.  A lane that fails fails the script; every lane process is
-    ended before this returns."""
+    its results}.  A lane that fails fails the script; every lane process,
+    and what it started (a lane is a process group of its own), is ended
+    before this returns."""
     # OpenMP threads that wait sleep: the lanes' threads outnumber the CPUs;
     # and the lanes' allocators map memory as they grow, holding no reserve
     env = {**os.environ, "CHIP_SMOKE_START": repr(START), "OMP_WAIT_POLICY": "PASSIVE",
@@ -2475,7 +2477,8 @@ def run_lanes():
                 if all(w in procs and procs[w].poll() == 0 for w in waits):
                     procs[name] = subprocess.Popen(
                         [sys.executable, os.path.abspath(__file__), "--lane", name],
-                        stdout=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+                        stdout=subprocess.PIPE, text=True, env=env, cwd=ROOT,
+                        start_new_session=True)
                     relays.append(threading.Thread(target=relay, args=(name, procs[name])))
                     relays[-1].start()
                     del pending[name]
@@ -2484,8 +2487,10 @@ def run_lanes():
             time.sleep(0.5)
     finally:
         for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
+            try:  # the lane and the processes it started (FID's sqrtm)
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
             proc.wait()
         for thread in relays:
             thread.join()
